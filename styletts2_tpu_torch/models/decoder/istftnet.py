@@ -1,0 +1,175 @@
+"""iSTFTNet decoder — the LJSpeech vocoder (ref: Modules/istftnet.py:301-527).
+
+``Decoder``: an AdainResBlk1d encode/decode stack over concat(aligned text
+features, downsampled F0/N curves), then ``Generator``: the harmonic source
+(its STFT injected at every scale), transposed-conv upsampling stages with
+Snake MRF resblocks, and a magnitude/phase head inverted with the iSTFT.
+
+``fused=True`` (the inference engine's path) runs every MRF resblock through
+the fused round (``kernels/mrf_round.py``): one statistics reduction per
+stage, shared by its resblocks, and chained statistics inside each.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+from ...audio.stft import istft_from_mag_phase, stft_mag_phase
+from ...config import DecoderConfig
+from ...kernels.mrf_round import masked_stats
+from ...nn.activations import leaky_relu
+from ...nn.conv import conv1d, conv_transpose1d
+from .. import common as cm
+from ..adain_blocks import AdainResBlk1d, adain_resblk1d_apply
+from .resblock import AdainResBlock1, adain_resblock1_apply, adain_resblock1_fused
+from .source import SourceModule, source_module_apply_mel
+
+
+class Generator(nn.Module):
+    def __init__(self, cfg: DecoderConfig, style_dim: int = 128):
+        super().__init__()
+        self.cfg = cfg
+        rates, init_ch = cfg.upsample_rates, cfg.upsample_initial_channel
+        n_fft = cfg.gen_istft_n_fft
+        self.m_source = SourceModule()
+        ups, noise_convs, noise_res, resblocks = [], [], [], []
+        for i, (u, k) in enumerate(zip(rates, cfg.upsample_kernel_sizes)):
+            c_cur = init_ch // (2 ** (i + 1))
+            ups.append(cm.WNConvTranspose1d(init_ch // (2 ** i), c_cur, k))
+            if i + 1 < len(rates):
+                noise_convs.append(nn.Conv1d(n_fft + 2, c_cur, math.prod(rates[i + 1:]) * 2))
+                noise_res.append(AdainResBlock1(c_cur, 7, (1, 3, 5), style_dim))
+            else:
+                noise_convs.append(nn.Conv1d(n_fft + 2, c_cur, 1))
+                noise_res.append(AdainResBlock1(c_cur, 11, (1, 3, 5), style_dim))
+            for rk, rd in zip(cfg.resblock_kernel_sizes, cfg.resblock_dilation_sizes):
+                resblocks.append(AdainResBlock1(c_cur, rk, rd, style_dim))
+        self.ups = nn.ModuleList(ups)
+        self.noise_convs = nn.ModuleList(noise_convs)
+        self.noise_res = nn.ModuleList(noise_res)
+        self.resblocks = nn.ModuleList(resblocks)
+        self.conv_post = cm.WNConv1d(init_ch // (2 ** len(rates)), n_fft + 2, 7)
+
+
+def _stage_lengths(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
+    b, _, t = x.shape
+    if lengths is None:
+        return torch.full((b,), t, dtype=torch.int32, device=x.device)
+    return torch.clamp(lengths, max=t).to(torch.int32)
+
+
+def _mrf_stage_fused(m: Generator, x, s, stage: int, lengths) -> torch.Tensor:
+    """All MRF resblocks of one stage through the fused round: one stats
+    reduction shared by the stage's resblocks, chained stats inside each."""
+    nk = len(m.cfg.resblock_kernel_sizes)
+    lens = _stage_lengths(x, lengths)
+    stats = masked_stats(x, lens)
+    xs = None
+    for j in range(nk):
+        r, _ = adain_resblock1_fused(m.resblocks[stage * nk + j], x, s, lens, stats=stats)
+        xs = r if xs is None else xs + r
+    return xs / nk
+
+
+def generator_apply(m: Generator, x: torch.Tensor, s: torch.Tensor, f0: torch.Tensor,
+                    lengths: Optional[torch.Tensor] = None, fused: bool = False,
+                    source_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B, init_ch, T_mel), s (B, S), f0 (B, T_mel) -> waveform (B, 1, T_samples)
+    (ref: Modules/istftnet.py:349-379).  ``lengths`` (B,) valid frames at
+    T_mel; ``source_noise`` the harmonic source's dither (None: zero)."""
+    cfg = m.cfg
+    rates = cfg.upsample_rates
+    n_fft, hop = cfg.gen_istft_n_fft, cfg.gen_istft_hop_size
+    nk = len(cfg.resblock_kernel_sizes)
+
+    har = source_module_apply_mel(m.m_source, f0, math.prod(rates) * hop,
+                                  noise=source_noise)[..., 0]
+    har_spec, har_phase = stft_mag_phase(har, n_fft, hop, n_fft)
+    har = torch.cat([har_spec, har_phase], dim=1).to(x.dtype)
+
+    for i in range(len(rates)):
+        x = leaky_relu(x, 0.1)
+        nc = m.noise_convs[i]
+        if i + 1 < len(rates):
+            stride_f0 = math.prod(rates[i + 1:])
+            x_source = conv1d(har, nc.weight, nc.bias, stride=stride_f0,
+                              padding=(stride_f0 + 1) // 2)
+        else:
+            x_source = conv1d(har, nc.weight, nc.bias)
+        stage_lengths = None if lengths is None else lengths * math.prod(rates[: i + 1])
+        if fused:
+            x_source, _ = adain_resblock1_fused(m.noise_res[i], x_source, s,
+                                                _stage_lengths(x_source, stage_lengths))
+        else:
+            x_source = adain_resblock1_apply(m.noise_res[i], x_source, s, stage_lengths)
+        up = m.ups[i]
+        u, k = rates[i], cfg.upsample_kernel_sizes[i]
+        x = conv_transpose1d(x, up.weight(), up.bias, stride=u, padding=(k - u) // 2)
+        if i == len(rates) - 1:
+            x = torch.cat([x[..., 1:2], x], dim=-1)            # reflection pad (1, 0)
+        x_source = x_source[..., : x.shape[-1]]
+        if x_source.shape[-1] < x.shape[-1]:
+            x_source = nn.functional.pad(x_source, (0, x.shape[-1] - x_source.shape[-1]))
+        x = x + x_source
+        if fused:
+            x = _mrf_stage_fused(m, x, s, i, stage_lengths)
+        else:
+            xs = None
+            for j in range(nk):
+                r = adain_resblock1_apply(m.resblocks[i * nk + j], x, s, stage_lengths)
+                xs = r if xs is None else xs + r
+            x = xs / nk
+
+    x = leaky_relu(x, 0.01)
+    x = cm.wn_conv1d(m.conv_post, x, padding=3)
+    spec = torch.exp(x[:, : n_fft // 2 + 1, :])
+    phase = torch.sin(x[:, n_fft // 2 + 1:, :])
+    return istft_from_mag_phase(spec, phase, n_fft, hop, n_fft)[:, None, :]
+
+
+class Decoder(nn.Module):
+    """``width``/``asr_res_ch`` default to the reference's 1024/64 channel
+    plan; smaller values are for tests."""
+
+    def __init__(self, cfg: DecoderConfig, dim_in: int = 512, style_dim: int = 128,
+                 width: int = 1024, asr_res_ch: int = 64):
+        super().__init__()
+        self.encode = AdainResBlk1d(dim_in + 2, width, style_dim)
+        mid = width + 2 + asr_res_ch
+        self.decode = nn.ModuleList([
+            AdainResBlk1d(mid, width, style_dim), AdainResBlk1d(mid, width, style_dim),
+            AdainResBlk1d(mid, width, style_dim),
+            AdainResBlk1d(mid, width // 2, style_dim, upsample=True)])
+        self.F0_conv = cm.WNConv1d(1, 1, 3)
+        self.N_conv = cm.WNConv1d(1, 1, 3)
+        self.asr_res = nn.ModuleList([cm.WNConv1d(dim_in, asr_res_ch, 1)])
+        self.generator = Generator(cfg, style_dim)
+
+
+def decoder_apply(m: Decoder, asr: torch.Tensor, f0_curve: torch.Tensor,
+                  n_curve: torch.Tensor, s: torch.Tensor,
+                  lengths: Optional[torch.Tensor] = None, fused: bool = False,
+                  source_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """asr (B, C, T_en) aligned text features, f0/n curves (B, 2*T_en),
+    s (B, S), lengths (B,) valid T_en frames -> waveform (B, 1, T_samples)
+    (ref: Modules/istftnet.py:498-527)."""
+    asr, f0_curve, n_curve, s = cm.autocast(m, asr, f0_curve, n_curve, s)
+    f0 = cm.wn_conv1d(m.F0_conv, f0_curve[:, None, :], stride=2, padding=1)
+    n = cm.wn_conv1d(m.N_conv, n_curve[:, None, :], stride=2, padding=1)
+
+    x = adain_resblk1d_apply(m.encode, torch.cat([asr, f0, n], dim=1), s, lengths)
+    asr_res = cm.wn_conv1d(m.asr_res[0], asr)
+    res = True
+    for blk in m.decode:
+        if res:
+            x = torch.cat([x, asr_res, f0, n], dim=1)
+        x = adain_resblk1d_apply(blk, x, s, lengths)
+        if blk.upsample:
+            res = False
+    return generator_apply(m.generator, x, s, f0_curve,
+                           lengths=None if lengths is None else lengths * 2,
+                           fused=fused, source_noise=source_noise)
