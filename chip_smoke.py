@@ -10,20 +10,29 @@ Phases, each of which exits non-zero when it fails:
 1. build: compile every CUDA source of ``styletts2_tpu_torch/csrc`` for
    sm_90a (one nvcc per source, all started together);
 2. kernels: hold each kernel against its plain PyTorch version at the
-   shapes the serving path gives it, and time both;
+   shapes its path gives it, and time both: mrf_round (K2) at the serving
+   shapes; adain_snake forward and backward (K1f, K1b) and maximum_path (K3)
+   at the stage-1 training shapes;
 3. serve: build the full-width LJSpeech port with seeded random weights,
    answer a batched, a single and a classifier-free-guided request through
    ``InferenceEngine.synthesize``, count the kernels' launches in each, and
-   hold the fused decoder against the plain one on the same inputs;
-4. print the kernels line, the card's name and power limit, and, last,
+   hold the fused decoder (K2) against the unfused one (whose AdaIN -> Snake
+   pairs run K1f) on the same inputs;
+4. train: build the full-width LJSpeech stage-1 nets with seeded random
+   weights and take 1 + 5 pre-TMA steps through ``train.loop.run_stage1``
+   (batch 16, clip 96 aligner frames, f32, TF32 off), counting the kernels'
+   launches in each step;
+5. print the kernels line, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds a
-torch.profiler breakdown of a batched and a single request to the serve phase.
+torch.profiler breakdown of a batched and a single request to the serve
+phase and of one training step to the train phase.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import math
@@ -74,6 +83,12 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def bound_ms(nbytes: float, flops: float = 0.0):
+    """(least ms for the work on the card, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def phase_kernels(torch, K):
     """mrf_round against mrf_round_plain at the generator's two stage shapes
     (frame capacity 200, batch 1, the widest round: k=11, d=5)."""
@@ -116,14 +131,13 @@ def phase_kernels(torch, K):
         flops = 2.0 * b * c * c * k * t
         nbytes = 4.0 * (3 * b * c * t + c * c * k + 4 * b * c + 2 * c + b
                         + b * K.n_tiles(t) * 3 * c)
-        bound_ms = 1e3 * max(flops / F32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)
+        least_ms, bound_by = bound_ms(nbytes, flops)
         rows.append({"stage": stage, "shape": f"B={b} C={c} T={t} k={k} d={d} +residual",
                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": bound_ms, "bound_by": "operations"
-                     if flops / F32_FLOP_PER_S >= nbytes / HBM_BYTES_PER_S else "bytes",
+                     "bound_ms": least_ms, "bound_by": bound_by,
                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
         print(f"mrf_round {stage} (B={b} C={c} T={t} k={k} d={d}): {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.conv1d {library_ms:.4f} ms, bound {bound_ms:.4f} ms",
+              f"{plain_ms:.4f} ms, F.conv1d {library_ms:.4f} ms, bound {least_ms:.4f} ms",
               flush=True)
     return rows
 
@@ -160,9 +174,10 @@ def parity_envelope(torch, a, b):
     return ok, out
 
 
-def profile_request(torch, call):
+def profile_request(torch, call, mark="mrf_round_kernel"):
     """Device time by kernel over one call (torch.profiler), and the share of
-    the call's wall time the device was busy."""
+    the call's wall time the device was busy; ``mark`` (a substring or a
+    tuple of them) names the kernels whose share is reported."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -180,10 +195,13 @@ def profile_request(torch, call):
             kernels[ev.key] = kernels.get(ev.key, 0.0) + us / 1e3
     device_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:12]
-    mrf_ms = sum(ms for name, ms in kernels.items() if "mrf_round_kernel" in name)
+    marks = (mark,) if isinstance(mark, str) else mark
     out = {"wall_ms": wall_ms, "device_ms": device_ms, "busy_share": device_ms / wall_ms,
-           "mrf_round_ms": mrf_ms, "mrf_round_share": mrf_ms / max(device_ms, 1e-9),
            "top": [[name[:80], ms] for name, ms in top]}
+    for m in marks:
+        ms_m = sum(ms for name, ms in kernels.items() if m in name)
+        out[f"{m}_ms"] = ms_m
+        out[f"{m}_share"] = ms_m / max(device_ms, 1e-9)
     print(f"profile: {out}", flush=True)
     return out
 
@@ -269,8 +287,192 @@ def phase_serve(torch, K, profile=False):
         env["max_abs_wav"] = float(plain[i, :m].abs().max())
         parity.append(env)
         check(ok, f"fused vs plain decoder outside the PARITY envelope: {env}")
-    print(f"serve kernel-vs-plain decoder: {parity}", flush=True)
+    # the unfused decoder's AdaIN -> Snake pairs run adain_snake (K1f) on the
+    # card: this holds K2's rounds against K1f and cuDNN's convolutions
+    print(f"serve fused (mrf_round) vs unfused (adain_snake fwd + cuDNN conv) decoder: "
+          f"{parity}", flush=True)
     return {"params": n_params, "runs": runs, "decoder_parity": parity, "t_mel": t_mel}
+
+
+def phase_train_kernels(torch, KA, KM):
+    """adain_snake forward (K1f) and backward (K1b) against their plain
+    versions at the stage-1 decoder's two row lengths, masked and not, and
+    maximum_path (K3) at the aligner's width: mixed lengths, a row with
+    text_len == mel_len, and ties."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(SEED)
+    rows = []
+    for c, t in ((256, 1920), (128, 11521)):
+        b = 16
+        x = torch.randn((b, c, t), generator=g, device=dev)
+        gamma = 0.3 * torch.randn((b, c), generator=g, device=dev)
+        beta = 0.3 * torch.randn((b, c), generator=g, device=dev)
+        alpha = 1.0 + 0.3 * torch.rand((c,), generator=g, device=dev)
+        dy = torch.randn((b, c, t), generator=g, device=dev)
+        for masked in (False, True):
+            lengths = (torch.randint(t // 2, t + 1, (b,), generator=g, device=dev,
+                                     dtype=torch.int32) if masked else None)
+            args = (x, gamma, beta, alpha, lengths)
+            y, mean, rstd = KA.adain_snake_fwd(*args)
+            torch.cuda.synchronize()
+            y_ref = KA.adain_snake_plain(*args)
+            fwd_err, y_max = float((y - y_ref).abs().max()), float(y_ref.abs().max())
+            check(fwd_err <= 1e-5 * y_max, f"adain_snake fwd {c}x{t}: {fwd_err} > 1e-5 * {y_max}")
+            got = KA.adain_snake_bwd(x, gamma, beta, alpha, mean, rstd, lengths, dy)
+            torch.cuda.synchronize()
+            got = [*got[:3], got[3].sum(0)]
+            closed = KA.adain_snake_bwd_plain(x, gamma, beta, alpha, mean, rstd, lengths, dy)
+            closed = [*closed[:3], closed[3].sum(0)]
+            leaves = [a.clone().requires_grad_() for a in (x, gamma, beta, alpha)]
+            (KA.adain_snake_plain(*leaves, lengths) * dy).sum().backward()
+            bwd_err = 0.0
+            for name, mine, ref, auto in zip(("dx", "dgamma", "dbeta", "dalpha"), got, closed,
+                                             [p.grad for p in leaves]):
+                for want in (ref, auto):
+                    err, scale = float((mine - want).abs().max()), float(want.abs().max())
+                    check(err <= 1e-4 * scale,
+                          f"adain_snake bwd {name} {c}x{t}: {err} > 1e-4 * {scale}")
+                    bwd_err = max(bwd_err, err)
+            row = {"shape": f"B={b} C={c} T={t}", "masked": masked, "fwd_max_abs_err": fwd_err,
+                   "max_abs_y": y_max, "bwd_max_abs_err": bwd_err}
+            if not masked:        # the training decoder's form (lengths None)
+                bwd_args = (x, gamma, beta, alpha, mean, rstd, None, dy)
+                row["fwd_ms"] = cuda_ms(lambda: KA.adain_snake_fwd(*args))
+                row["fwd_plain_ms"] = cuda_ms(lambda: KA.adain_snake_plain(*args))
+                row["bwd_ms"] = cuda_ms(lambda: KA.adain_snake_bwd(*bwd_args))
+                row["bwd_plain_ms"] = cuda_ms(lambda: KA.adain_snake_bwd_plain(*bwd_args))
+                n = b * c * t          # operations per frame as written, each sine one
+                row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(
+                    4.0 * (2 * n + 4 * b * c), 14.0 * n)
+                row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(
+                    4.0 * (3 * n + 6 * b * c), 32.0 * n)
+                print(f"adain_snake B={b} C={c} T={t}: fwd {row['fwd_ms']:.4f} ms (plain "
+                      f"{row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.4f}); bwd "
+                      f"{row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
+                      f"{row['bwd_bound_ms']:.4f})", flush=True)
+            rows.append(row)
+
+    b, t_text, t_mel = 16, 128, 104
+    for case in ("mixed", "text_len == mel_len", "ties"):
+        values = torch.rand((b, t_text, t_mel), generator=g, device=dev)
+        if case == "ties":
+            values = torch.round(values * 4) / 4
+        ml = torch.randint(40, t_mel + 1, (b,), generator=g, device=dev, dtype=torch.int32)
+        tl = torch.minimum(torch.randint(20, t_text + 1, (b,), generator=g, device=dev,
+                                         dtype=torch.int32), ml)
+        if case == "text_len == mel_len":
+            tl = ml.clone()
+        path = KM.maximum_path(values, tl, ml)
+        torch.cuda.synchronize()
+        ref = KM.maximum_path_plain(values, tl, ml)
+        check(torch.equal(path, ref), f"maximum_path ({case}) differs from its plain version")
+        check(bool((path.sum(1)[0, : int(ml[0])] == 1).all()), "maximum_path: not one-hot")
+        row = {"shape": f"B={b} T_text={t_text} T_mel={t_mel}", "case": case,
+               "max_abs_err": float((path - ref).abs().max())}
+        if case == "mixed":
+            row["ms"] = cuda_ms(lambda: KM.maximum_path(values, tl, ml))
+            row["plain_ms"] = cuda_ms(lambda: KM.maximum_path_plain(values, tl, ml), reps=5)
+            row["bound_ms"], row["bound_by"] = bound_ms(4.0 * 2 * b * t_text * t_mel,
+                                                        6.0 * b * t_text * t_mel)
+            print(f"maximum_path B={b} T_text={t_text} T_mel={t_mel}: {row['ms']:.4f} ms "
+                  f"(plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.6f}; T_mel={t_mel} "
+                  "dependent frame steps, each a block barrier, and as many backtrack steps)",
+                  flush=True)
+        rows.append(row)
+    return rows
+
+
+def phase_train(torch, KA, KM, K2, profile=False, dev="cuda", mp=None, asr_cfg=None,
+                widths=(1024, 64), b=16, t_text=128):
+    """1 warm + 5 timed pre-TMA stage-1 steps at the full LJSpeech width
+    through run_stage1, with the kernels' launches counted per step.  The
+    keyword arguments size a rehearsal on the CPU (``dev="cpu"``, a small
+    ``mp``); the defaults are the LJSpeech configuration."""
+    import numpy as np
+    from styletts2_tpu_torch.config import Config, ModelParams
+    from styletts2_tpu_torch.models.asr import ASRConfig
+    from styletts2_tpu_torch.models.zoo import STAGE1_NETS, build_nets, init_random_
+    from styletts2_tpu_torch.train.loop import run_stage1
+    from styletts2_tpu_torch.train.stage1 import TRAINED
+
+    dev = torch.device(dev)
+    cfg, mp = Config(), mp or ModelParams()
+    asr_cfg = asr_cfg or ASRConfig(n_token=mp.n_token)
+    nets = init_random_(build_nets(mp, decoder_width=widths[0], decoder_asr_res_ch=widths[1],
+                                   nets=STAGE1_NETS, asr_cfg=asr_cfg), SEED)
+    with torch.no_grad():                          # as in the serve phase
+        nets["decoder"].generator.conv_post.weight_g.mul_(0.05)
+    nets.to(dev)
+    n_params = {k: sum(p.numel() for p in v.parameters()) for k, v in nets.items()}
+    before = {k: [t.clone() for t in v.state_dict().values()] for k, v in nets.items()}
+
+    # the TPU bench's batch (bench_train1.py): 16 waves of 208 mel frames at
+    # 0.1 N(0, 1), 128 tokens; 198 valid frames give run_stage1's clip of 96
+    frames, steps = 208, 6
+    rng = np.random.default_rng(SEED)
+    batches = [{"waves": (0.1 * rng.standard_normal((b, frames * 300))).astype(np.float32),
+                "texts": rng.integers(4, 170, (b, t_text)),
+                "input_lengths": np.full((b,), t_text),
+                "mel_input_length": np.full((b,), 198)} for _ in range(steps)]
+    marks, per_step = [], []
+
+    def log_cb(it, metrics):                       # metrics are floats: the step has synced
+        marks.append(time.perf_counter())
+        per_step.append({"iter": it, **metrics,
+                         "adain_snake_fwd": KA.fwd_launches, "adain_snake_bwd": KA.bwd_launches,
+                         "maximum_path": KM.launches, "mrf_round": K2.launches})
+
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+    KA.fwd_launches = KA.bwd_launches = KM.launches = K2.launches = 0
+    t0 = time.perf_counter()
+    state = run_stage1(dataclasses.replace(cfg, log_interval=1), {"model": mp},
+                       nets, lambda epoch: iter(batches), max_steps=steps, log_cb=log_cb,
+                       device=dev, seed=SEED)
+    launches = {"adain_snake_fwd": KA.fwd_launches, "adain_snake_bwd": KA.bwd_launches,
+                "maximum_path": KM.launches, "mrf_round": K2.launches}
+    check(state.iters == steps and len(marks) == steps, f"run_stage1 took {state.iters} steps")
+    prev = {k: 0 for k in launches}
+    for rec in per_step:
+        check(np.isfinite(rec["mel_loss"]) and np.isfinite(rec["g_loss"]),
+              f"non-finite loss at step {rec['iter']}: {rec}")
+        got = {k: rec[k] - prev[k] for k in prev}
+        want = {"adain_snake_fwd": 48, "adain_snake_bwd": 48, "maximum_path": 1, "mrf_round": 0}
+        check(got == (want if on_card else {k: 0 for k in want}),
+              f"launches in step {rec['iter']}: {got}")
+        prev = {k: rec[k] for k in prev}
+    step_ms = [1e3 * (b_ - a_) for a_, b_ in zip(marks, marks[1:])]
+    warm_ms = 1e3 * (marks[0] - t0)
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    for name, net in nets.items():
+        moved = any(not torch.equal(a, w) for a, w in zip(before[name], net.state_dict().values()))
+        check(moved == (name in TRAINED), f"{name} {'moved' if moved else 'did not move'}")
+    median_ms = statistics.median(step_ms)
+    audio_s = b * frames * 300 / 24000.0
+    out = {"params": n_params, "batch": b, "frames": frames, "t_text": t_text, "mel_len": 96,
+           "warm_step_ms": warm_ms, "step_ms": step_ms, "median_step_ms": median_ms,
+           "audio_s_per_step": audio_s, "train_audio_s_per_s": audio_s / (median_ms / 1e3),
+           "peak_mem_bytes": peak, "losses": [r["mel_loss"] for r in per_step],
+           "launches": launches}
+    print(f"train: {steps} steps, mel_loss {out['losses']}; step {median_ms:.3f} ms median "
+          f"of {['%.3f' % v for v in step_ms]} (warm {warm_ms:.1f} ms); "
+          f"{out['train_audio_s_per_s']:.2f} training audio-s/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches per step: adain_snake fwd 48, bwd 48, "
+          "maximum_path 1", flush=True)
+    if profile:
+        from styletts2_tpu_torch.train.stage1 import Stage1Trainer
+
+        trainer = Stage1Trainer(cfg, {"model": mp}, nets, state.optimizer)
+        tb = {"waves": torch.from_numpy(batches[0]["waves"]).to(dev)}
+        for k in ("mel_input_length", "texts", "input_lengths"):
+            tb[k] = torch.from_numpy(batches[0][k]).long().to(dev)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        out["profile"] = profile_request(
+            torch, lambda: float(trainer.step(tb, 96, 96, generator=gen)["mel_loss"]),
+            mark=("adain_snake_fwd_kernel", "adain_snake_bwd_kernel", "maximum_path_kernel"))
+    return out
 
 
 def main() -> None:
@@ -294,7 +496,9 @@ def main() -> None:
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
 
+    from styletts2_tpu_torch.kernels import adain_snake as KA
     from styletts2_tpu_torch.kernels import build
+    from styletts2_tpu_torch.kernels import maximum_path as KM
     from styletts2_tpu_torch.kernels import mrf_round as K
 
     t0 = time.perf_counter()
@@ -304,8 +508,11 @@ def main() -> None:
     for name, log in logs.items():
         print(f"--- nvcc {name}.cu ---\n{log.strip()}", flush=True)
 
+    profile = "--profile" in sys.argv[1:]
     kernel_rows = phase_kernels(torch, K)
-    serve = phase_serve(torch, K, profile="--profile" in sys.argv[1:])
+    train_kernel_rows = phase_train_kernels(torch, KA, KM)
+    serve = phase_serve(torch, K, profile=profile)
+    train = phase_train(torch, KA, KM, K, profile=profile)
 
     timed = {r["stage"]: r for r in kernel_rows if "ms" in r}
     s1 = timed["stage1"]
@@ -317,10 +524,33 @@ def main() -> None:
         "ms": s1["ms"], "plain_ms": s1["plain_ms"], "bound_ms": s1["bound_ms"],
         "bound_by": s1["bound_by"], "library_ms": s1["library_ms"], "shape": s1["shape"],
     }]
+    k1 = next(r for r in train_kernel_rows if r.get("shape") == "B=16 C=128 T=11521"
+              and "fwd_ms" in r)
+    k1_err = [r for r in train_kernel_rows if "fwd_max_abs_err" in r]
+    k3 = next(r for r in train_kernel_rows if "ms" in r and "case" in r)
+    for name, direction, replaces in (
+            ("adain_snake_fwd", "fwd", "styletts2_tpu/ops/pallas/adain_snake_kernel.py:134"),
+            ("adain_snake_bwd", "bwd", "styletts2_tpu/ops/pallas/adain_snake_kernel.py:157")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
+            "replaces": replaces, "launches": train["launches"][name],
+            "max_abs_err": max(r[f"{direction}_max_abs_err"] for r in k1_err),
+            "ms": k1[f"{direction}_ms"], "plain_ms": k1[f"{direction}_plain_ms"],
+            "bound_ms": k1[f"{direction}_bound_ms"], "bound_by": k1[f"{direction}_bound_by"],
+            "library_ms": None, "shape": k1["shape"]})
+    kernels.append({
+        "name": "maximum_path", "route": "cuda",
+        "source": "styletts2_tpu_torch/csrc/maximum_path.cu",
+        "replaces": "styletts2_tpu/ops/pallas/monotonic_kernel.py:80",
+        "launches": train["launches"]["maximum_path"],
+        "max_abs_err": max(r["max_abs_err"] for r in train_kernel_rows if "case" in r),
+        "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "bound_by": k3["bound_by"], "library_ms": None, "shape": k3["shape"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_s, "kernel_checks": kernel_rows, "serve": serve,
+        {"card": card, "build_s": build_s, "kernel_checks": kernel_rows,
+         "train_kernel_checks": train_kernel_rows, "serve": serve, "train": train,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -11,13 +11,14 @@ Conventions used by every model module in this package:
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from ..nn.conv import conv1d
-from ..nn.param_norm import weight_norm_kernel
+from ..nn.conv import conv1d, conv2d
+from ..nn.param_norm import spectral_norm_kernel, weight_norm_kernel
 
 
 def _param(*shape: int) -> nn.Parameter:
@@ -58,6 +59,41 @@ class WNConvTranspose1d(WeightNormed):
         super().__init__((in_ch, out_ch // groups, kernel), out_ch if bias else None)
 
 
+class SNConv2d(nn.Module):
+    """Spectral-norm Conv2d as torch's spectral_norm stores it: the
+    ``weight_orig`` parameter (out, in/groups, KH, KW), optional ``bias``,
+    and the power-iteration buffers ``weight_u`` (out,) and ``weight_v``
+    (in/groups * KH * KW,)."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: Sequence[int], groups: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        self.weight_orig = _param(out_ch, in_ch // groups, *kernel)
+        if bias:
+            self.bias = _param(out_ch)
+        else:
+            self.register_parameter("bias", None)
+        self.register_buffer("weight_u", torch.zeros(out_ch))
+        self.register_buffer("weight_v", torch.zeros((in_ch // groups) * math.prod(kernel)))
+
+    def weight(self) -> torch.Tensor:
+        """One stateless power iteration from the stored vectors (the JAX
+        package's ``_sn_kernel``): the vectors themselves are constants, the
+        refined ones carry gradients to ``weight_orig``."""
+        w, _, _ = spectral_norm_kernel(self.weight_orig, self.weight_u.detach(),
+                                       self.weight_v.detach(), n_power_iterations=1)
+        return w
+
+    @torch.no_grad()
+    def converge_(self, iterations: int = 15) -> None:
+        """Run the power iteration to convergence from the stored ``weight_u``
+        and store (u, v): random vectors give a wildly wrong sigma."""
+        u = self.weight_u / torch.clamp(torch.linalg.vector_norm(self.weight_u), min=1e-12)
+        _, u, v = spectral_norm_kernel(self.weight_orig, u, self.weight_v, iterations)
+        self.weight_u.copy_(u)
+        self.weight_v.copy_(v)
+
+
 class StyleAffine(nn.Module):
     """AdaIN1d / AdaLayerNorm parameters: ``fc`` projects the style to
     (gamma, beta)."""
@@ -83,6 +119,18 @@ def lstm(input_size: int, hidden: int) -> nn.LSTM:
 
 def wn_conv1d(m: WeightNormed, x: torch.Tensor, **kw) -> torch.Tensor:
     return conv1d(x, m.weight(), m.bias, **kw)
+
+
+def sn_conv2d(m: SNConv2d, x: torch.Tensor, **kw) -> torch.Tensor:
+    return conv2d(x, m.weight(), m.bias, **kw)
+
+
+def dropout(x: torch.Tensor, keep: Optional[torch.Tensor], p: float) -> torch.Tensor:
+    """Inverted dropout with a given keep mask (bool, x's shape or
+    broadcastable); ``keep=None`` is the identity (eval, or no dropout)."""
+    if keep is None:
+        return x
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
 def embedding(m: nn.Embedding, ids: torch.Tensor) -> torch.Tensor:

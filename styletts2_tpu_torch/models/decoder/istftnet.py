@@ -7,13 +7,18 @@ Snake MRF resblocks, and a magnitude/phase head inverted with the iSTFT.
 
 ``fused=True`` (the inference engine's path) runs every MRF resblock through
 the fused round (``kernels/mrf_round.py``): one statistics reduction per
-stage, shared by its resblocks, and chained statistics inside each.
+stage, shared by its resblocks, and chained statistics inside each.  The
+plain path, which training takes, runs each AdaIN -> Snake pair through
+``ops/fused.py::adain_snake`` (the K1 kernels on the card); the fused round
+has no backward.  In training the F0 and energy curves are smoothed by a
+moving average of a randomly chosen width (``random_smooth``), chosen here
+by explicit indices.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -86,8 +91,9 @@ def generator_apply(m: Generator, x: torch.Tensor, s: torch.Tensor, f0: torch.Te
     n_fft, hop = cfg.gen_istft_n_fft, cfg.gen_istft_hop_size
     nk = len(cfg.resblock_kernel_sizes)
 
+    # the harmonic source is a constant, as in the reference (no_grad)
     har = source_module_apply_mel(m.m_source, f0, math.prod(rates) * hop,
-                                  noise=source_noise)[..., 0]
+                                  noise=source_noise)[..., 0].detach()
     har_spec, har_phase = stft_mag_phase(har, n_fft, hop, n_fft)
     har = torch.cat([har_spec, har_phase], dim=1).to(x.dtype)
 
@@ -150,14 +156,40 @@ class Decoder(nn.Module):
         self.generator = Generator(cfg, style_dim)
 
 
+F0_SMOOTH = (0, 3, 7)
+N_SMOOTH = (0, 3, 7, 15)
+
+
+def random_smooth(curve: torch.Tensor, index: torch.Tensor,
+                  down_choices: Sequence[int]) -> torch.Tensor:
+    """Moving average of width ``down_choices[index]`` (0: none) over the
+    curve (B, T) (ref: Modules/istftnet.py:499-507); ``index`` a 0-dim
+    integer tensor, chosen among the stacked candidates on the device."""
+    outs = []
+    for d in down_choices:
+        if d == 0:
+            outs.append(curve)
+        else:
+            kern = torch.full((1, 1, d), 1.0 / d, dtype=curve.dtype, device=curve.device)
+            outs.append(conv1d(curve[:, None, :], kern, padding=d // 2)[:, 0, : curve.shape[-1]])
+    return torch.stack(outs)[index]
+
+
 def decoder_apply(m: Decoder, asr: torch.Tensor, f0_curve: torch.Tensor,
                   n_curve: torch.Tensor, s: torch.Tensor,
                   lengths: Optional[torch.Tensor] = None, fused: bool = False,
-                  source_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  source_noise: Optional[torch.Tensor] = None,
+                  smooth: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """asr (B, C, T_en) aligned text features, f0/n curves (B, 2*T_en),
     s (B, S), lengths (B,) valid T_en frames -> waveform (B, 1, T_samples)
-    (ref: Modules/istftnet.py:498-527)."""
+    (ref: Modules/istftnet.py:498-527).  ``smooth`` (training): the indices
+    into ``F0_SMOOTH`` and ``N_SMOOTH`` of the curves' smoothing widths."""
     asr, f0_curve, n_curve, s = cm.autocast(m, asr, f0_curve, n_curve, s)
+    if smooth is not None:
+        if fused:
+            raise ValueError("the fused decoder has no backward: training runs fused=False")
+        f0_curve = random_smooth(f0_curve, smooth[0], F0_SMOOTH)
+        n_curve = random_smooth(n_curve, smooth[1], N_SMOOTH)
     f0 = cm.wn_conv1d(m.F0_conv, f0_curve[:, None, :], stride=2, padding=1)
     n = cm.wn_conv1d(m.N_conv, n_curve[:, None, :], stride=2, padding=1)
 

@@ -1,7 +1,8 @@
 """Phoneme text encoder (ref: models.py:363-437).
 
 Embedding -> ``depth`` x [weight-norm Conv1d(k=5) + channel LayerNorm +
-LeakyReLU(0.2)] -> BiLSTM, with padding masked to zero between every stage.
+LeakyReLU(0.2) + Dropout(0.2) in training] -> BiLSTM, with padding masked to
+zero between every stage.  The dropout takes explicit keep masks.
 """
 
 from __future__ import annotations
@@ -30,9 +31,15 @@ class TextEncoder(nn.Module):
         self.lstm = cm.lstm(channels, channels // 2)
 
 
+DROPOUT = 0.2
+
+
 def text_encoder_apply(m: TextEncoder, tokens: torch.Tensor,
-                       lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """tokens (B, T) int -> (B, C, T) masked features."""
+                       lengths: Optional[torch.Tensor] = None,
+                       dropout_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """tokens (B, T) int -> (B, C, T) masked features.  ``dropout_keep``
+    (depth, B, C, T) bool: the training dropout's keep masks after each CNN
+    block (None: eval)."""
     b, t = tokens.shape
     if lengths is None:
         lengths = torch.full((b,), t, dtype=torch.int32, device=tokens.device)
@@ -40,9 +47,12 @@ def text_encoder_apply(m: TextEncoder, tokens: torch.Tensor,
 
     x = cm.embedding(m.embedding, tokens).transpose(1, 2) * keep  # (B, C, T)
     pad = (m.kernel_size - 1) // 2
-    for conv, norm in m.cnn:
+    for i, (conv, norm) in enumerate(m.cnn):
         x = cm.wn_conv1d(conv, x, padding=pad)
         x = layer_norm(x, norm.gamma, norm.beta, dim=1)
-        x = leaky_relu(x, 0.2) * keep
+        x = leaky_relu(x, 0.2)
+        if dropout_keep is not None:
+            x = cm.dropout(x, dropout_keep[i], DROPOUT)
+        x = x * keep
     x = bilstm(m.lstm, x.transpose(1, 2), lengths)               # (B, T, C)
     return x.transpose(1, 2) * keep

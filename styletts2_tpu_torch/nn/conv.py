@@ -1,4 +1,5 @@
-"""1-D convolutions with torch-layout kernels, channels-first activations.
+"""Convolutions and pooling with torch-layout kernels, channels-first
+activations.
 
 The JAX package's MXU-shaped rewrites (``conv1d_folded``,
 ``conv_transpose1d_subpixel``) are TPU layouts and have no counterpart here.
@@ -28,6 +29,19 @@ def conv_transpose1d(x: torch.Tensor, w: torch.Tensor,
     return F.conv_transpose1d(x, w, b, stride=stride, padding=padding,
                               output_padding=output_padding, groups=groups,
                               dilation=dilation)
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           stride=1, padding=0, dilation=1, groups: int = 1) -> torch.Tensor:
+    """x (B, C_in, H, W), w (C_out, C_in/groups, KH, KW)."""
+    return F.conv2d(x, w, b, stride=stride, padding=padding, dilation=dilation,
+                    groups=groups)
+
+
+def avg_pool2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
+    """Non-overlapping mean pool over the two trailing axes; a ragged edge
+    is dropped (floor mode)."""
+    return F.avg_pool2d(x, window)
 
 
 def interpolate_nearest_2x(x: torch.Tensor) -> torch.Tensor:

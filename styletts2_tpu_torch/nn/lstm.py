@@ -1,4 +1,4 @@
-"""Bidirectional LSTM with packed-sequence semantics.
+"""Bidirectional LSTM with packed-sequence semantics, and one LSTMCell step.
 
 ``styletts2_tpu/nn/lstm.py`` reproduces ``nn.LSTM`` on a packed sequence with
 masked scans; here the packed sequence is used directly: the reverse
@@ -7,7 +7,7 @@ direction starts at each sample's true end and padded positions are zero.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -25,3 +25,15 @@ def bilstm(lstm: nn.LSTM, x: torch.Tensor,
     out, _ = lstm(packed)
     out, _ = pad_packed_sequence(out, batch_first=True, total_length=x.shape[1])
     return out
+
+
+def lstm_step(cell: nn.LSTMCell, x: torch.Tensor, h: torch.Tensor,
+              c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ``nn.LSTMCell`` step, gates ordered i, f, g, o, summed in the JAX
+    package's order (``styletts2_tpu/nn/lstm.py::lstm_step``)."""
+    gates = (x @ cell.weight_ih.t() + cell.bias_ih + h @ cell.weight_hh.t()
+             + cell.bias_hh)
+    i, f, g, o = torch.chunk(gates, 4, dim=-1)
+    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h = torch.sigmoid(o) * torch.tanh(c)
+    return h, c

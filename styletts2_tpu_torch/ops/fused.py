@@ -1,10 +1,12 @@
 """The AdaIN1d -> Snake pair of the vocoder MRF resblocks
-(ref: Modules/istftnet.py:27-81), as a plain composition.
+(ref: Modules/istftnet.py:27-81).
 
-This is the unfused resblock's form.  The fused form runs whole rounds
-(norm -> affine -> snake -> dilated conv) through ``kernels/mrf_round.py``;
-the TPU's opt-in ``adain_snake_pallas`` kernel is ported with the training
-slice.
+``adain_snake`` projects the style to (gamma, beta) and hands the pair to
+``kernels/adain_snake.py``: the plain composition on the CPU, the K1f/K1b
+kernels inside an autograd Function on the card.  The plain resblock and
+the training decoder run through it; the serving decoder's fused form runs
+whole rounds (norm -> affine -> snake -> dilated conv) through
+``kernels/mrf_round.py`` instead.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional
 
 import torch
 
-from ..nn.activations import snake
+from ..kernels import adain_snake as K
 from ..nn.norm import style_affine
 
 
@@ -23,17 +25,6 @@ def adain_snake(adain, x: torch.Tensor, s: torch.Tensor, alpha: torch.Tensor,
     reference's (1, C, 1) parameter; ``lengths`` (B,) restricts the norm
     statistics to valid frames.  Centered two-pass variance."""
     gamma, beta = style_affine(adain.fc, s)                    # (B, C) each
-    t = x.shape[-1]
-    if lengths is None:
-        mean = x.mean(dim=-1)
-        var = torch.square(x - mean[:, :, None]).mean(dim=-1)
-    else:
-        keep = (torch.arange(t, device=x.device)[None, None, :]
-                < lengths[:, None, None]).to(x.dtype)
-        n = torch.clamp(keep[:, 0, :].sum(-1), min=1.0)[:, None]
-        mean = torch.sum(x * keep, dim=-1) / n
-        var = torch.sum(torch.square(x - mean[:, :, None]) * keep, dim=-1) / n
-    rstd = torch.rsqrt(var + 1e-5)
-    u = ((x - mean[:, :, None]) * rstd[:, :, None] * (1.0 + gamma)[:, :, None]
-         + beta[:, :, None])
-    return snake(u, alpha.reshape(1, -1, 1))
+    return K.adain_snake(x.contiguous(), gamma.contiguous(), beta.contiguous(),
+                         alpha.reshape(-1),
+                         None if lengths is None else lengths.to(torch.int32).contiguous())

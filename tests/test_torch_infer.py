@@ -113,6 +113,11 @@ def test_port_imports_no_jax():
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "assert len(names) > 20, names\n"
+        "need = {'audio.mel', 'losses.stft_loss', 'models.style_encoder', 'models.jdc',\n"
+        "        'models.asr', 'ops.monotonic', 'kernels.maximum_path', 'kernels.adain_snake',\n"
+        "        'train.optimizers', 'train.stage1', 'train.loop'}\n"
+        "missing = {n for n in need if pkg.__name__ + '.' + n not in names}\n"
+        "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'styletts2_tpu' or m.startswith('styletts2_tpu.')]\n"
         "assert not bad, bad\n"
