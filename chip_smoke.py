@@ -11,8 +11,10 @@ Phases, each of which exits non-zero when it fails:
    sm_90a (one nvcc per source, all started together);
 2. kernels: hold each kernel against its plain PyTorch version at the
    shapes its path gives it, and time both: mrf_round (K2) at the serving
-   shapes; adain_snake forward and backward (K1f, K1b) and maximum_path (K3)
-   at the stage-1 training shapes;
+   shapes of batch 1 and of the batched call, beside cuDNN's conv alone in
+   f32 and in TF32, after counting the TF32 tensor-core instructions in its
+   library (``cuobjdump -sass``); adain_snake forward and backward (K1f,
+   K1b) and maximum_path (K3) at the stage-1 training shapes;
 3. serve: build the full-width LJSpeech port with seeded random weights,
    answer a batched, a single and a classifier-free-guided request through
    ``InferenceEngine.synthesize``, count the kernels' launches in each, and
@@ -36,6 +38,8 @@ import dataclasses
 import json
 import logging
 import math
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -45,6 +49,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM, f32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12         # H100 SXM, dense TF32 on the tensor cores
 SEED = 0
 STEPS = 5
 PHONEMES = [                     # LJSpeech-style IPA, four lengths
@@ -83,25 +88,28 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(nbytes: float, flops: float = 0.0):
+def bound_ms(nbytes: float, flops: float = 0.0, flop_per_s: float = F32_FLOP_PER_S):
     """(least ms for the work on the card, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def phase_kernels(torch, K):
-    """mrf_round against mrf_round_plain at the generator's two stage shapes
-    (frame capacity 200, batch 1, the widest round: k=11, d=5)."""
+    """mrf_round against mrf_round_plain at the generator's two stage shapes,
+    the widest round (k=11, d=5): batch 1 at frame capacity 200, and the
+    batched serving call's batch 4 at capacity 1600."""
     import torch.nn.functional as F
     from styletts2_tpu_torch.nn.activations import snake
 
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(SEED)
     rows = []
-    for stage, c, t in (("stage0", 256, 4000), ("stage1", 128, 24000)):
-        k, d, b = 11, 5, 1
+    for stage, b, c, t in (("stage0", 1, 256, 4000), ("stage1", 1, 128, 24000),
+                           ("stage0_b4", 4, 256, 32000), ("stage1_b4", 4, 128, 192000)):
+        k, d = 11, 5
         x = torch.randn((b, c, t), generator=g, device=dev)
-        lengths = torch.tensor([t * 4 // 5], dtype=torch.int32, device=dev)
+        lengths = torch.tensor([t * 4 // 5, t, t // 2, t * 3 // 4][:b], dtype=torch.int32,
+                               device=dev)
         gamma = 0.1 * torch.randn((b, c), generator=g, device=dev)
         beta = 0.1 * torch.randn((b, c), generator=g, device=dev)
         alpha = torch.rand((c,), generator=g, device=dev) + 0.5
@@ -128,18 +136,39 @@ def phase_kernels(torch, K):
         ms = cuda_ms(lambda: K.mrf_round(*args, k=k, d=d, residual=res))
         plain_ms = cuda_ms(lambda: K.mrf_round_plain(*args, k=k, d=d, residual=res))
         library_ms = cuda_ms(lambda: F.conv1d(act, w, bias, padding=pad, dilation=d))
+        allow_tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True        # only for this yardstick
+        try:
+            library_tf32_ms = cuda_ms(lambda: F.conv1d(act, w, bias, padding=pad, dilation=d))
+        finally:
+            torch.backends.cudnn.allow_tf32 = allow_tf32
         flops = 2.0 * b * c * c * k * t
         nbytes = 4.0 * (3 * b * c * t + c * c * k + 4 * b * c + 2 * c + b
                         + b * K.n_tiles(t) * 3 * c)
-        least_ms, bound_by = bound_ms(nbytes, flops)
+        # the kernel's three TF32 products per multiply-add on the tensor cores
+        least_ms, bound_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
+        f32_ms, f32_by = bound_ms(nbytes, flops)
         rows.append({"stage": stage, "shape": f"B={b} C={c} T={t} k={k} d={d} +residual",
                      "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "bound_ms": least_ms, "bound_by": bound_by,
+                     "library_tf32_ms": library_tf32_ms, "bound_ms": least_ms,
+                     "bound_by": bound_by, "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
         print(f"mrf_round {stage} (B={b} C={c} T={t} k={k} d={d}): {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, F.conv1d {library_ms:.4f} ms, bound {least_ms:.4f} ms",
-              flush=True)
+              f"{plain_ms:.4f} ms, F.conv1d {library_ms:.4f} ms (TF32 {library_tf32_ms:.4f}), "
+              f"bound {least_ms:.4f} ms 3xTF32 / {f32_ms:.4f} ms f32", flush=True)
     return rows
+
+
+def sass_mma_counts(path) -> dict:
+    """Tensor-core MMA instructions in a built library, by opcode
+    (``cuobjdump -sass``)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True)
+    check(out.returncode == 0, f"cuobjdump -sass {path} failed: {out.stderr.strip()}")
+    counts = {}
+    for op in re.findall(r"\b(HG?MMA\.[\w.]+)", out.stdout):
+        counts[op] = counts.get(op, 0) + 1
+    return counts
 
 
 def log_mel(torch, wav):
@@ -507,6 +536,10 @@ def main() -> None:
     print(f"build: {sorted(logs)} in {build_s:.2f} s", flush=True)
     for name, log in logs.items():
         print(f"--- nvcc {name}.cu ---\n{log.strip()}", flush=True)
+    sass = sass_mma_counts(build.library_path("mrf_round"))
+    print(f"mrf_round SASS tensor-core instructions: {sass}", flush=True)
+    check(sum(n for op, n in sass.items() if "TF32" in op) > 0,
+          f"libmrf_round has no TF32 tensor-core instruction: {sass}")
 
     profile = "--profile" in sys.argv[1:]
     kernel_rows = phase_kernels(torch, K)
@@ -523,6 +556,7 @@ def main() -> None:
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows if "max_abs_err" in r),
         "ms": s1["ms"], "plain_ms": s1["plain_ms"], "bound_ms": s1["bound_ms"],
         "bound_by": s1["bound_by"], "library_ms": s1["library_ms"], "shape": s1["shape"],
+        "bound_f32_ms": s1["bound_f32_ms"], "library_tf32_ms": s1["library_tf32_ms"],
     }]
     k1 = next(r for r in train_kernel_rows if r.get("shape") == "B=16 C=128 T=11521"
               and "fwd_ms" in r)
@@ -549,7 +583,8 @@ def main() -> None:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
-        {"card": card, "build_s": build_s, "kernel_checks": kernel_rows,
+        {"card": card, "build_s": build_s, "nvcc_logs": logs, "mrf_round_sass_mma": sass,
+         "kernel_checks": kernel_rows,
          "train_kernel_checks": train_kernel_rows, "serve": serve, "train": train,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,4 +1,5 @@
-// One fused MRF round of the iSTFTNet generator, for Hopper (sm_90a), f32.
+// One fused MRF round of the iSTFTNet generator, for Hopper (sm_90a), on the
+// tensor cores with wgmma in 3xTF32 (f32-accurate).
 //
 // Replaces styletts2_tpu/ops/pallas/mrf_round_kernel.py::fused_mrf_round
 // (body _round_kernel).  For every (b, c_out, t):
@@ -7,209 +8,395 @@
 //   a   = u + sin(alpha*u)^2 / alpha                         Snake, 0 outside [0, T)
 //   y   = bias + sum_{ci,k} w[co,ci,k] * a[ci, t + k*d - pad]  (+ residual)
 //
-// and per T-tile partials (S1, M2 around the tile mean, n) of y over the
-// frames t < min(lengths[b], T), which the wrapper combines with Chan's rule
-// into the next round's (mean, rstd).  Values in [lengths, T) are computed,
-// not zeroed: only the statistics are masked, as on the TPU.
+// and per 64-frame tile partials (S1, M2 around the tile mean, n) of y over
+// the frames t < min(lengths[b], T), which the wrapper combines with Chan's
+// rule into the next round's (mean, rstd).  Values in [lengths, T) are
+// computed, not zeroed: only the statistics are masked, as on the TPU.
 //
-// What bounds it.  At LJSpeech frame capacity 200 (batch 1) the 48 rounds of
-// one request do about 239 GFLOP: stage 0 is 6*2*256^2*4000*(7+21) FLOP and
-// stage 1 is 6*2*128^2*24000*(11+21) FLOP.  A stage-1 round moves about
-// 37 MB (x, residual and y at 128 x 24000 f32, ~12 MB each).  That is ~230
-// FLOP per byte, above the f32 ridge of the card (67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/byte): the round is bound by operations.
+// What bounds it.  The conv is 2*C^2*K FLOP per output frame and moves
+// ~12 bytes per frame and channel (x, residual, y), ~230 FLOP per byte at
+// C=128, K=11: bound by operations.  On the f32 CUDA cores (67 TFLOP/s) the
+// batched serving call's 48 rounds (7.65 TFLOP) need 114 ms.  TF32 tensor
+// cores run at 495 TFLOP/s, but TF32 keeps 11 significant bits: a 1408-term
+// sum would be ~3e-4 of |y| off, above the 1e-4 gate.  So each operand is
+// split, a = hi + lo with hi = tf32(a) and lo = tf32(a - hi) (by truncation,
+// within 2^-20 |a|: tf32_wgmma.cuh), and the three products lo*hi, hi*lo and
+// hi*hi are accumulated in f32: near-f32 results at a third of the TF32
+// rate, a 46 ms floor for that call.
 //
-// What this design does about it.  The activation never touches device
-// memory: each block applies the affine and snake while it loads its input
-// halo into shared memory, so a round reads x once (plus the halo overlap,
-// 2*pad/128 extra) and writes y once, and the next round's statistics come
-// out of the epilogue instead of a separate reduction pass.  The conv is an
-// implicit GEMM on the CUDA cores: a 64 (c_out) x 128 (t) output tile per
-// block of 256 threads, 4 x 8 f32 accumulators per thread, the weights and
-// activations of an 8-channel input chunk staged in shared memory (~29 KB
-// static at K=11).  Tensor cores (TF32/bf16 wgmma) and TMA staging are the
-// next step; this first form is plain and exact in f32.
+// The design.  An implicit GEMM per block of 256 threads (two warpgroups):
+// M = 128 output channels (64 per warpgroup), N = NT frames (64, 128 or 256),
+// reduced over the input channels in chunks of 8 (one k8 step) and over the
+// K taps, all into the same accumulators.
+// - Form: wgmma.mma_async m64nNTk8 TF32, A = the weights from registers,
+//   B = the activation from shared memory.  TF32 wgmma needs both operands
+//   K-major (C_in contiguous).  The activation is kept as [4-channel half]
+//   [frame][4 channels], 16 bytes per frame, so that in the no-swizzle
+//   layout core matrix j (frames 8j..8j+7) starts 128*j bytes in: tap k, a
+//   shift of k*d frames, is the descriptor's start address plus 16*k*d
+//   bytes, at any shift.  The weights need no shift; each lane loads its
+//   four A values per tap from [k][co][8 ci] in shared memory (the two
+//   16-byte halves swapped on bit 2 of co, so the loads hit 32 banks).
+// - The split: A is split in registers as it is loaded; B is split once, when
+//   the activation is made, into a hi and a lo plane (wgmma reads B only
+//   from shared memory).  The planes add 12 KB a stage at NT = 128; the
+//   weights, 45 KB a stage at K = 11, stay f32 once.
+// - One activation per element: a block covers 128 output channels, all of
+//   them at stage 1 (C=128) and half at stage 0 (C=256), so the AdaIN + Snake
+//   prologue with its full-precision sinf runs once (stage 1) or twice
+//   (stage 0) per (b, ci, t), against 2-4x in the SIMT kernel before it.
+// - Overlap: per chunk, every thread loads and splits its A fragments for
+//   all K taps and the warpgroup issues its 3K wgmmas at once; while the
+//   tensor cores run them, the block activates the next chunk (its raw x and
+//   weights already landed by cp.async) into the other plane buffer and
+//   issues the cp.async copies of the chunk after.  Two stages of planes and
+//   weights, one of raw x.
+// - Epilogue: the accumulators go through shared memory ([co][t], float2
+//   stores at a stride = 8 (mod 32) words), the residual tile is added with
+//   all its loads in flight at once, and each warp walks whole rows along t:
+//   bias, coalesced stores of y, and each 64-frame tile's S1 and centred M2
+//   by warp shuffles.
+// - Grid: (T / NT, C_out / 128, B).  NT is the widest of 256, 128 and 64
+//   that still gives at least one block per SM: 256 halves the weight
+//   traffic from L2 (every block streams all C_in x K weights of its 128
+//   channels), 64 doubles the blocks of the small batch-1 rounds (stage 0 at
+//   frame capacity 200: 126 blocks on 132 SMs).
 
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tf32_wgmma.cuh"
 
 namespace {
 
-constexpr int T_TILE = 128;    // output frames per block
-constexpr int CO_TILE = 64;    // output channels per block
-constexpr int CI_CHUNK = 8;    // input channels staged per step
+constexpr int THREADS = 256;   // two warpgroups
+constexpr int CO_TILE = 128;   // output channels per block, 64 per warpgroup
+constexpr int CI_CHUNK = 8;    // input channels per stage: one k8 step
 constexpr int MAX_PAD = 32;    // (K*d - d)/2 <= 25 for K <= 11, d <= 5
-constexpr int HALO = T_TILE + 2 * MAX_PAD;
-constexpr int THREADS = 256;
-constexpr int TX = 16;         // threads along t   (lanes of a half-warp)
-constexpr int TY = THREADS / TX;
-constexpr int T_PER = T_TILE / TX;    // 8 frames per thread, stride TX
-constexpr int CO_PER = CO_TILE / TY;  // 4 channels per thread, stride TY
+constexpr int STAT_TILE = 64;  // frames per tile of the partials
 
-template <int K>
-__global__ void __launch_bounds__(THREADS)
+template <int NT, int K>
+struct Tile {
+  static constexpr int ROW = NT + 2 * MAX_PAD;      // frames of x staged per channel
+  static constexpr int RAW_STRIDE = ROW + 4;        // = 4 (mod 32) words
+  static constexpr int RAW = CI_CHUNK * RAW_STRIDE;
+  static constexpr int HALF = 4 * ROW + 16;         // one 4-channel half; = 16 (mod 32)
+  static constexpr int PLANES = 4 * HALF;           // hi (two halves), then lo
+  static constexpr int STAGE = PLANES + K * CO_TILE * CI_CHUNK;
+  static constexpr int Y_STRIDE = NT + 8;           // = 8 (mod 32) words
+  static constexpr int MAIN = RAW + 2 * STAGE;
+  static constexpr int EPILOGUE = CO_TILE * Y_STRIDE;
+  static constexpr int BYTES = 4 * (MAIN > EPILOGUE ? MAIN : EPILOGUE);
+  static constexpr int ACC = NT / 2;                // accumulators per thread
+  static_assert(RAW_STRIDE % 32 == 4 && HALF % 32 == 16 && Y_STRIDE % 32 == 8,
+                "bank-conflict strides");
+};
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+template <int NT, int K>
+__global__ void __launch_bounds__(THREADS, 1)
 mrf_round_kernel(const float* __restrict__ x, const float* __restrict__ mean,
                  const float* __restrict__ rstd, const float* __restrict__ gamma,
                  const float* __restrict__ beta, const float* __restrict__ alpha,
-                 const float* __restrict__ w, const float* __restrict__ bias,
+                 const float* __restrict__ wt, const float* __restrict__ bias,
                  const int* __restrict__ lengths, const float* __restrict__ residual,
-                 float* __restrict__ y, float* __restrict__ parts,
-                 int c_in, int c_out, int t, int d) {
-  __shared__ float act[CI_CHUNK][HALO];
-  __shared__ float ws[CI_CHUNK * K][CO_TILE + 1];  // +1: conflict-free transpose
+                 float* __restrict__ y, float* __restrict__ parts, int c_in, int c_out, int t,
+                 int d, int vec_x) {
+  using L = Tile<NT, K>;
+  extern __shared__ __align__(128) float smem[];
+  float* raw = smem;                  // raw x of the next chunk
+  float* stages = smem + L::RAW;      // 2 x (hi/lo planes, weights)
 
   const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
-  const int t0 = blockIdx.x * T_TILE;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t0 = blockIdx.x * NT;
   const int co0 = blockIdx.y * CO_TILE;
   const int b = blockIdx.z;
   const int pad = (K * d - d) / 2;
-  const int halo = T_TILE + 2 * pad;
+  const int n_chunks = c_in / CI_CHUNK;
 
-  float acc[CO_PER][T_PER];
-#pragma unroll
-  for (int i = 0; i < CO_PER; ++i)
-#pragma unroll
-    for (int j = 0; j < T_PER; ++j) acc[i][j] = 0.f;
+  // Raw x of channels [ci0, ci0 + 8) over frames [t0 - MAX_PAD, t0 + NT + MAX_PAD)
+  // into `raw`, and the weights (k, co0 + co, ci0 .. ci0 + 7) into `ws`.
+  auto load = [&](int chunk, float* ws) {
+    const int ci0 = chunk * CI_CHUNK;
+    const float* xb = x + ((size_t)b * c_in + ci0) * t;
+    const int p0 = t0 - MAX_PAD;
+    if (vec_x) {  // t % 4 == 0 and p0 % 4 == 0: each 4-frame vector is all in or all out
+      constexpr int V = L::ROW / 4;
+      for (int i = tid; i < CI_CHUNK * V; i += THREADS) {
+        const int r = i / V;
+        const int v = i - r * V;
+        const int p = p0 + 4 * v;
+        const bool ok = p >= 0 && p < t;
+        tf32::cp_async16(raw + r * L::RAW_STRIDE + 4 * v, ok ? xb + (size_t)r * t + p : x, ok);
+      }
+    } else {
+      for (int i = tid; i < CI_CHUNK * L::ROW; i += THREADS) {
+        const int r = i / L::ROW;
+        const int s = i - r * L::ROW;
+        const int p = p0 + s;
+        const bool ok = p >= 0 && p < t;
+        tf32::cp_async4(raw + r * L::RAW_STRIDE + s, ok ? xb + (size_t)r * t + p : x, ok);
+      }
+    }
+    for (int i = tid; i < K * CO_TILE * 2; i += THREADS) {
+      const int h = i & 1;
+      const int row = i >> 1;  // k * CO_TILE + co
+      const int co = row % CO_TILE;
+      const int kk = row / CO_TILE;
+      const float* src = wt + ((size_t)kk * c_out + co0 + co) * c_in + ci0 + 4 * h;
+      tf32::cp_async16(ws + row * CI_CHUNK + 4 * (h ^ ((co >> 2) & 1)), src, true);
+    }
+    tf32::cp_async_commit();
+  };
 
-  for (int ci0 = 0; ci0 < c_in; ci0 += CI_CHUNK) {
-    __syncthreads();  // the previous chunk's reads are done
-    for (int i = tid; i < CI_CHUNK * halo; i += THREADS) {
-      const int cl = i / halo;
-      const int s = i - cl * halo;
-      const int ci = ci0 + cl;
-      const int p = t0 - pad + s;
-      float a = 0.f;  // zero conv padding of the ACTIVATION outside [0, T)
-      if (ci < c_in && p >= 0 && p < t) {
-        const int bc = b * c_in + ci;
-        const float u = (1.f + gamma[bc]) * ((x[(size_t)bc * t + p] - mean[bc]) * rstd[bc])
-                        + beta[bc];
-        const float al = alpha[ci];
+  // AdaIN + Snake of `raw` into the hi and lo planes over the frames the taps
+  // read; 0 outside [0, T).  Plane row s holds 4 channels in 16 bytes.
+  auto activate = [&](int chunk, float* planes) {
+    const int r = tid & 7;  // one channel per thread
+    const int ci = chunk * CI_CHUNK + r;
+    const int bc = b * c_in + ci;
+    const float g1 = 1.f + gamma[bc], mu = mean[bc], rs = rstd[bc], be = beta[bc];
+    const float al = alpha[ci];
+    const float* rw = raw + r * L::RAW_STRIDE;
+    float* hi = planes + (r >> 2) * L::HALF + (r & 3);
+    const int s0 = MAX_PAD - pad;
+    for (int j = tid >> 3; j < NT + 2 * pad; j += THREADS / 8) {
+      const int s = s0 + j;
+      const int p = t0 - MAX_PAD + s;
+      float a = 0.f;
+      if (p >= 0 && p < t) {
+        const float u = g1 * ((rw[s] - mu) * rs) + be;
         const float sn = sinf(al * u);  // full-precision sine: |alpha*u| is unbounded
         a = u + sn * sn / al;
       }
-      act[cl][s] = a;
+      uint32_t h, l;
+      tf32::split(a, h, l);
+      hi[4 * s] = __uint_as_float(h);
+      hi[4 * s + 2 * L::HALF] = __uint_as_float(l);
     }
-    // w[co][ci][k] is contiguous in (ci, k) for a fixed co
-    for (int i = tid; i < CO_TILE * CI_CHUNK * K; i += THREADS) {
-      const int col = i / (CI_CHUNK * K);
-      const int r = i - col * (CI_CHUNK * K);
-      const int co = co0 + col;
-      float v = 0.f;
-      if (co < c_out && ci0 + r / K < c_in) v = w[((size_t)co * c_in + ci0) * K + r];
-      ws[r][col] = v;
-    }
-    __syncthreads();
+    tf32::fence_proxy_async();  // the planes are read by wgmma
+  };
 
-#pragma unroll 2
-    for (int cl = 0; cl < CI_CHUNK; ++cl) {
+  float acc[L::ACC];
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        float wv[CO_PER];
+  for (int i = 0; i < L::ACC; ++i) acc[i] = 0.f;
+
+  load(0, stages + L::PLANES);
+  tf32::cp_async_wait<0>();
+  __syncthreads();
+  activate(0, stages);
+  __syncthreads();
+  if (n_chunks > 1) load(1, stages + L::STAGE + L::PLANES);
+
+  // this lane's rows of A: output channels g and g + 8 of its warp's 16
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int sw = 4 * ((g >> 2) & 1);  // where channel q lies after the half swap
+  const int a_row = (warp >> 2) * 64 + (warp & 3) * 16 + g;
+  for (int c = 0; c < n_chunks; ++c) {
+    const float* planes = stages + (c & 1) * L::STAGE;
+    const float* wrow = planes + L::PLANES + a_row * CI_CHUNK;
+    const uint32_t hi_addr = static_cast<uint32_t>(__cvta_generic_to_shared(planes));
+    const uint32_t lo_addr = hi_addr + 4 * 2 * L::HALF;
+    uint32_t a_hi[K][4], a_lo[K][4];
 #pragma unroll
-        for (int i = 0; i < CO_PER; ++i) wv[i] = ws[cl * K + k][ty + TY * i];
-        const float* arow = &act[cl][tx + k * d];
-#pragma unroll
-        for (int j = 0; j < T_PER; ++j) {
-          const float av = arow[TX * j];
-#pragma unroll
-          for (int i = 0; i < CO_PER; ++i) acc[i][j] = fmaf(wv[i], av, acc[i][j]);
-        }
-      }
+    for (int kk = 0; kk < K; ++kk) {
+      const float* wk = wrow + kk * CO_TILE * CI_CHUNK;
+      tf32::split(wk[sw + q], a_hi[kk][0], a_lo[kk][0]);
+      tf32::split(wk[8 * CI_CHUNK + sw + q], a_hi[kk][1], a_lo[kk][1]);
+      tf32::split(wk[(4 - sw) + q], a_hi[kk][2], a_lo[kk][2]);
+      tf32::split(wk[8 * CI_CHUNK + (4 - sw) + q], a_hi[kk][3], a_lo[kk][3]);
     }
+    tf32::fence_operands(acc);
+    tf32::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      // B rows start at frame t0 + kk*d - pad: plane row MAX_PAD - pad + kk*d
+      const uint32_t shift = 16u * static_cast<uint32_t>(MAX_PAD - pad + kk * d);
+      const uint64_t b_hi = tf32::desc(hi_addr + shift, 4 * L::HALF, 128);
+      const uint64_t b_lo = tf32::desc(lo_addr + shift, 4 * L::HALF, 128);
+      tf32::mma<NT>(acc, a_lo[kk], b_hi);  // smallest products first
+      tf32::mma<NT>(acc, a_hi[kk], b_lo);
+      tf32::mma<NT>(acc, a_hi[kk], b_hi);
+    }
+    tf32::wgmma_commit();
+    // while the tensor cores run chunk c: activate chunk c + 1, load c + 2
+    if (c + 1 < n_chunks) {
+      tf32::cp_async_wait<0>();
+      __syncthreads();
+      activate(c + 1, stages + ((c + 1) & 1) * L::STAGE);
+      __syncthreads();  // raw is free; the weights of chunk c are in registers
+      if (c + 2 < n_chunks) load(c + 2, stages + (c & 1) * L::STAGE + L::PLANES);
+    }
+    tf32::wgmma_wait<0>();
+    tf32::fence_operands(acc);
   }
 
-  // epilogue: bias, residual, store; partials over the valid frames of the tile
+  // accumulators -> ys[co][t] (the stages are free once every warp is here)
+  __syncthreads();
+  float* ys = smem;
+#pragma unroll
+  for (int i = 0; i < NT / 8; ++i) {
+    *reinterpret_cast<float2*>(ys + a_row * L::Y_STRIDE + 8 * i + 2 * q) =
+        make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(ys + (a_row + 8) * L::Y_STRIDE + 8 * i + 2 * q) =
+        make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  __syncthreads();
+  if (residual != nullptr) {  // the residual tile, with every load in flight at once
+    constexpr int PER = CO_TILE * NT / THREADS;
+    float rv[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * THREADS;
+      const int n = i / NT;
+      const int tt = t0 + (i - n * NT);
+      rv[j] = tt < t ? __ldg(residual + ((size_t)b * c_out + co0 + n) * t + tt) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * THREADS;
+      const int n = i / NT;
+      ys[n * L::Y_STRIDE + (i - n * NT)] += rv[j];
+    }
+    __syncthreads();
+  }
+
+  // bias, coalesced store; partials over the valid frames of each 64-frame tile
   const int len = min(lengths[b], t);
-  const int n_valid = max(0, min(len - t0, T_TILE));
-  const float inv_n = 1.f / fmaxf((float)n_valid, 1.f);
-#pragma unroll
-  for (int i = 0; i < CO_PER; ++i) {
-    const int co = co0 + ty + TY * i;
-    const bool co_ok = co < c_out;
-    const float bv = co_ok ? bias[co] : 0.f;
+  const int n_stat = (t + STAT_TILE - 1) / STAT_TILE;
+  for (int n = warp; n < CO_TILE; n += THREADS / 32) {
+    const int co = co0 + n;
+    const float bv = bias[co];
     const size_t row = ((size_t)b * c_out + co) * t;
-    float yv[T_PER];
-    float s1 = 0.f;
 #pragma unroll
-    for (int j = 0; j < T_PER; ++j) {
-      const int tt = t0 + tx + TX * j;
-      float v = acc[i][j] + bv;
-      if (co_ok && tt < t) {
-        if (residual != nullptr) v += residual[row + tt];
-        y[row + tt] = v;
+    for (int sub = 0; sub < NT / STAT_TILE; ++sub) {
+      const int tile = blockIdx.x * (NT / STAT_TILE) + sub;
+      if (tile >= n_stat) break;
+      float v[2];
+      float s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int tl = sub * STAT_TILE + lane + 32 * j;
+        const int tt = t0 + tl;
+        v[j] = ys[n * L::Y_STRIDE + tl] + bv;
+        if (tt < t) y[row + tt] = v[j];
+        if (tt < len) s1 += v[j];
       }
-      yv[j] = v;
-      if (tt < len) s1 += v;
-    }
-    // the TX lanes of one half-warp share ty, hence co
+      s1 = warp_sum(s1);
+      const int n_valid = max(0, min(len - tile * STAT_TILE, STAT_TILE));
+      const float mu = s1 / fmaxf((float)n_valid, 1.f);
+      float m2 = 0.f;
 #pragma unroll
-    for (int off = TX / 2; off > 0; off >>= 1) s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    const float mu = s1 * inv_n;
-    float m2 = 0.f;
-#pragma unroll
-    for (int j = 0; j < T_PER; ++j) {
-      const float dv = yv[j] - mu;
-      if (t0 + tx + TX * j < len) m2 += dv * dv;
-    }
-#pragma unroll
-    for (int off = TX / 2; off > 0; off >>= 1) m2 += __shfl_xor_sync(0xffffffffu, m2, off);
-    if (tx == 0 && co_ok) {
-      float* pp = parts + ((size_t)b * gridDim.x + blockIdx.x) * 3 * c_out + co;
-      pp[0] = s1;
-      pp[c_out] = m2;
-      pp[2 * c_out] = (float)n_valid;
+      for (int j = 0; j < 2; ++j) {
+        const float dv = v[j] - mu;
+        if (t0 + sub * STAT_TILE + lane + 32 * j < len) m2 += dv * dv;
+      }
+      m2 = warp_sum(m2);
+      if (lane == 0) {
+        float* pp = parts + ((size_t)b * n_stat + tile) * 3 * c_out + co;
+        pp[0] = s1;
+        pp[c_out] = m2;
+        pp[2 * c_out] = (float)n_valid;
+      }
     }
   }
 }
 
-template <int K>
-void launch(dim3 grid, cudaStream_t stream, const float* x, const float* mean,
-            const float* rstd, const float* gamma, const float* beta, const float* alpha,
-            const float* w, const float* bias, const int* lengths, const float* residual,
-            float* y, float* parts, int c_in, int c_out, int t, int d) {
-  mrf_round_kernel<K><<<grid, THREADS, 0, stream>>>(
-      x, mean, rstd, gamma, beta, alpha, w, bias, lengths, residual, y, parts,
-      c_in, c_out, t, d);
+struct Args {
+  const float *x, *mean, *rstd, *gamma, *beta, *alpha, *wt, *bias;
+  const int* lengths;
+  const float* residual;
+  float *y, *parts;
+  int batch, c_in, c_out, t, d;
+  cudaStream_t stream;
+};
+
+// Above 48 KB of dynamic shared memory a kernel has to ask for it.  Asking
+// also loads the kernel, so the first request that runs it does not.
+template <int NT, int K>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(mrf_round_kernel<NT, K>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<NT, K>::BYTES);
+}
+
+cudaError_t allow_smem_all() {
+  const cudaError_t errs[] = {allow_smem<64, 3>(),  allow_smem<64, 7>(),  allow_smem<64, 11>(),
+                              allow_smem<128, 3>(), allow_smem<128, 7>(), allow_smem<128, 11>(),
+                              allow_smem<256, 3>(), allow_smem<256, 7>(), allow_smem<256, 11>()};
+  for (cudaError_t e : errs)
+    if (e != cudaSuccess) return e;
+  return cudaSuccess;
+}
+
+template <int NT, int K>
+int launch(const Args& a) {
+  using L = Tile<NT, K>;
+  const int vec_x = (a.t % 4 == 0) && (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
+  const dim3 grid((a.t + NT - 1) / NT, a.c_out / CO_TILE, a.batch);
+  mrf_round_kernel<NT, K><<<grid, THREADS, L::BYTES, a.stream>>>(
+      a.x, a.mean, a.rstd, a.gamma, a.beta, a.alpha, a.wt, a.bias, a.lengths, a.residual, a.y,
+      a.parts, a.c_in, a.c_out, a.t, a.d, vec_x);
+  return (int)cudaGetLastError();
+}
+
+template <int NT>
+int launch_k(const Args& a, int k) {
+  switch (k) {
+    case 3:
+      return launch<NT, 3>(a);
+    case 7:
+      return launch<NT, 7>(a);
+    default:
+      return launch<NT, 11>(a);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Frames per T-tile: the wrapper sizes the partials (B, n_tiles, 3, C_out) with it.
-int mrf_round_t_tile() { return T_TILE; }
+// Frames per tile of the partials: the wrapper sizes them (B, n_tiles, 3, C_out).
+int mrf_round_t_tile() { return STAT_TILE; }
 
-// Launches one round on `stream` and returns cudaGetLastError() (0 = launched).
-// `residual` may be null.  All tensors are contiguous f32 except lengths (i32).
+// Launches one round on `stream` and returns a cudaError_t (0 = launched).
+// wt is the effective kernel re-laid as (K, C_out, C_in); `residual` may be
+// null.  All tensors are contiguous f32 except lengths (i32); wt is 16-byte
+// aligned; C_in % 8 == 0 and C_out % 128 == 0.
 int mrf_round_f32(const float* x, const float* mean, const float* rstd,
                   const float* gamma, const float* beta, const float* alpha,
-                  const float* w, const float* bias, const int* lengths,
+                  const float* wt, const float* bias, const int* lengths,
                   const float* residual, float* y, float* parts, int batch, int c_in,
                   int c_out, int t, int k, int d, int device, void* stream) {
-  if ((k * d - d) / 2 > MAX_PAD || d < 1 || batch < 1 || t < 1 || batch > 65535)
+  if ((k != 3 && k != 7 && k != 11) || d < 1 || (k * d - d) / 2 > MAX_PAD || batch < 1 ||
+      batch > 65535 || t < 1 || c_in < CI_CHUNK || c_in % CI_CHUNK != 0 || c_out < CO_TILE ||
+      c_out % CO_TILE != 0 || reinterpret_cast<uintptr_t>(wt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((t + T_TILE - 1) / T_TILE, (c_out + CO_TILE - 1) / CO_TILE, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 3:
-      launch<3>(grid, s, x, mean, rstd, gamma, beta, alpha, w, bias, lengths, residual, y,
-                parts, c_in, c_out, t, d);
-      break;
-    case 7:
-      launch<7>(grid, s, x, mean, rstd, gamma, beta, alpha, w, bias, lengths, residual, y,
-                parts, c_in, c_out, t, d);
-      break;
-    case 11:
-      launch<11>(grid, s, x, mean, rstd, gamma, beta, alpha, w, bias, lengths, residual, y,
-                 parts, c_in, c_out, t, d);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  static bool ready[64] = {};  // per device: every instantiation allowed its shared memory
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    err = allow_smem_all();
+    if (err != cudaSuccess) return (int)err;
+    ready[device] = true;
   }
-  return (int)cudaGetLastError();
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const Args a{x, mean, rstd, gamma, beta, alpha, wt, bias, lengths, residual, y, parts,
+               batch, c_in, c_out, t, d, static_cast<cudaStream_t>(stream)};
+  const long long tiles = (long long)(c_out / CO_TILE) * batch;  // blocks per T-tile column
+  if ((t + 255) / 256 * tiles >= sms) return launch_k<256>(a, k);
+  if ((t + 127) / 128 * tiles >= sms) return launch_k<128>(a, k);
+  return launch_k<64>(a, k);
 }
 
 }  // extern "C"

@@ -2,10 +2,12 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``_build/lib<name>-<digest>.so`` and loaded
-with ``ctypes``.  The digest covers the source and the flags, so an edited
-source builds anew.  Nothing is built when the package is imported: the
-first call that needs a library builds it, and ``build()`` builds every
-source at once, one ``nvcc`` process per source, all started together.
+with ``ctypes``.  The digest covers the source, every ``csrc/*.cuh`` header
+(included from the source's own directory, so no ``-I`` is needed) and the
+flags, so an edited source or header builds anew.  Nothing is built when the
+package is imported: the first call that needs a library builds it, and
+``build()`` builds every source at once, one ``nvcc`` process per source,
+all started together.
 """
 
 from __future__ import annotations
@@ -43,8 +45,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

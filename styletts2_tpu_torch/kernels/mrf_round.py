@@ -14,8 +14,10 @@ the next round's (mean, rstd).  Values in [lengths, T) are computed, not
 zeroed: only the statistics are masked.
 
 ``mrf_round`` takes a tensor on the CPU to ``mrf_round_plain`` and a CUDA
-tensor to the kernel; anything else raises.  ``launches`` counts kernel
-launches.  Inference only: there is no backward.
+tensor to the kernel, which runs the conv on the tensor cores (wgmma) in
+3xTF32, f32-accurate, and takes C_in a multiple of 8 and C_out a multiple of
+128; anything else raises.  ``launches`` counts kernel launches.  Inference
+only: there is no backward.
 """
 
 from __future__ import annotations
@@ -30,9 +32,10 @@ from ..nn.activations import snake
 from . import build
 
 EPS = 1e-5
-T_TILE = 128            # frames per tile of the partials; equals the kernel's
+T_TILE = 64             # frames per tile of the partials; equals the kernel's
 KERNEL_SIZES = (3, 7, 11)
 MAX_PAD = 32            # the kernel's halo room: (k*d - d) // 2 <= MAX_PAD
+CI_MULTIPLE, CO_MULTIPLE = 8, 128   # the kernel's chunk of C_in and block of C_out
 
 launches = 0
 
@@ -109,11 +112,15 @@ def mrf_round(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
         raise ValueError(f"mrf_round: no kernel for device {x.device}")
     b, c_in, t = x.shape
     c_out = w.shape[0]
+    if c_in % CI_MULTIPLE or c_out % CO_MULTIPLE:
+        raise ValueError(f"mrf_round: the kernel takes C_in % {CI_MULTIPLE} == 0 and "
+                         f"C_out % {CO_MULTIPLE} == 0, not {c_in} -> {c_out}")
+    wt = w.permute(2, 0, 1).contiguous()                       # (k, C_out, C_in)
     y = torch.empty((b, c_out, t), device=x.device, dtype=torch.float32)
     parts = torch.empty((b, n_tiles(t), 3, c_out), device=x.device, dtype=torch.float32)
     rc = _lib().mrf_round_f32(
         x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), alpha.data_ptr(), w.data_ptr(), bias.data_ptr(),
+        beta.data_ptr(), alpha.data_ptr(), wt.data_ptr(), bias.data_ptr(),
         lengths.data_ptr(), None if residual is None else residual.data_ptr(),
         y.data_ptr(), parts.data_ptr(), b, c_in, c_out, t, k, d,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)

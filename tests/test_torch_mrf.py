@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from styletts2_tpu.models.decoder import istftnet as j_istftnet
 from styletts2_tpu.models.decoder.resblock import (
@@ -25,6 +26,7 @@ from styletts2_tpu_torch.models.decoder.istftnet import Decoder, decoder_apply
 from styletts2_tpu_torch.models.decoder.resblock import (
     AdainResBlock1, adain_resblock1_apply, adain_resblock1_fused)
 from styletts2_tpu_torch.models.zoo import flatten
+from styletts2_tpu_torch.nn.activations import snake
 
 torch.set_num_threads(1)
 
@@ -171,16 +173,61 @@ def test_generator_fused_matches_unfused_and_jax():
     np.testing.assert_allclose(ours.numpy()[..., 700:], ref[..., 700:], atol=2e-4, rtol=1e-3)
 
 
+def tf32(a: torch.Tensor, rounding: str) -> torch.Tensor:
+    """f32 rounded to TF32 (10 explicit mantissa bits): to nearest with ties
+    away from zero (``cvt.rna.tf32.f32``), or by truncation (what the
+    kernel's split and the tensor core's read of a TF32 operand do)."""
+    bits = a.contiguous().view(torch.int32)
+    if rounding == "nearest":
+        bits = bits + 0x1000
+    return (bits & ~0x1FFF).view(torch.float32)
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "truncate"])
+def test_three_tf32_products_keep_f32_accuracy(rounding):
+    """The arithmetic of the CUDA kernel's conv, emulated on the CPU at C=128,
+    k=11: with a = a_hi + a_lo (a_hi = tf32(a), a_lo = tf32(a - a_hi)) and
+    the same for w, the products a_lo*w_hi + a_hi*w_lo + a_hi*w_hi summed in
+    f32 are within 1e-5 * max|y| of an f64 conv; one TF32 product a_hi*w_hi
+    is not within the card's 1e-4 gate."""
+    b, c, t, k, d = 1, 128, 600, 11, 5
+    a = round_inputs(5, b, c, t, k, [t])
+    x, lengths = t_(a["x"]), torch.from_numpy(a["lengths"])
+    mean, rstd = K.masked_stats(x, lengths)
+    u = ((1.0 + t_(a["gamma"])[:, :, None]) * ((x - mean[:, :, None]) * rstd[:, :, None])
+         + t_(a["beta"])[:, :, None])
+    act, w = snake(u, t_(a["alpha"])[None, :, None]), t_(a["w"])
+    pad = (k * d - d) // 2
+    ref = F.conv1d(act.double(), w.double(), padding=pad, dilation=d)
+    scale = float(ref.abs().max())
+
+    a_hi, w_hi = tf32(act, rounding), tf32(w, rounding)
+    a_lo, w_lo = tf32(act - a_hi, rounding), tf32(w - w_hi, rounding)
+    # one f32 accumulation over the three products of every (ci, tap)
+    three = F.conv1d(torch.cat([a_lo, a_hi, a_hi], 1), torch.cat([w_hi, w_lo, w_hi], 1),
+                     padding=pad, dilation=d)
+    one = F.conv1d(a_hi, w_hi, padding=pad, dilation=d)
+    err_three = float((three.double() - ref).abs().max())
+    err_one = float((one.double() - ref).abs().max())
+    assert err_three <= 1e-5 * scale, (err_three, scale)
+    assert err_one > 1e-4 * scale, (err_one, scale)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_residual", [False, True])
-def test_kernel_matches_plain_on_gpu(with_residual):
-    """The CUDA kernel against its plain version on the card (stage-1-like
-    shape, masked lengths): y at 1e-4 * max|y|, chained stats at 1e-4."""
+@pytest.mark.parametrize("k,d", [(3, 1), (3, 5), (7, 3), (11, 5), (11, 1)])
+@pytest.mark.parametrize("c,t", [(256, 2300), (128, 6001), (128, 12001)])
+def test_kernel_matches_plain_on_gpu(c, t, k, d, with_residual):
+    """The CUDA kernel against its plain version on the card at the
+    generator's round shapes, batch 3, lengths = T and < T: y at
+    1e-4 * max|y|, chained stats at 1e-4.  On 132 SMs the three (C, T) take
+    the kernel's 64-, 128- and 256-frame tiles; T=2300 its 16-byte loads of
+    x, the odd T its 4-byte loads; no T is a multiple of a tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     torch.backends.cudnn.allow_tf32 = False
-    b, c, t, k, d = 2, 128, 3000, 11, 5
-    a = round_inputs(4, b, c, t, k, [t, 1777])
+    b = 3
+    a = round_inputs(4, b, c, t, k, [t, 2 * t // 3, 97])
     dev = torch.device("cuda")
     g = {n: torch.from_numpy(v).to(dev) for n, v in a.items()}
     mean, rstd = K.masked_stats(g["x"], g["lengths"])
