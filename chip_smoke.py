@@ -14,7 +14,11 @@ Phases, each of which exits non-zero when it fails:
    shapes of batch 1 and of the batched call, beside cuDNN's conv alone in
    f32 and in TF32, after counting the TF32 tensor-core instructions in its
    library (``cuobjdump -sass``); adain_snake forward and backward (K1f,
-   K1b) and maximum_path (K3) at the stage-1 training shapes;
+   K1b) at the stage-1 training shapes, those of max_len 400 and a short
+   odd row, each with its share of the byte bound and the path its row
+   length takes, and maximum_path (K3) at the aligner's shape.  Each
+   kernel's ``ms`` holds the host's time per call where it outlasts the
+   device's (``cuda_ms``); ``device_ms`` beside it is the device's alone;
 3. serve: build the full-width LJSpeech port with seeded random weights,
    answer a batched, a single and a classifier-free-guided request through
    ``InferenceEngine.synthesize``, count the kernels' launches in each, and
@@ -50,6 +54,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM, f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12         # H100 SXM, dense TF32 on the tensor cores
+SLEEP_CYCLES = 2_000_000         # ~1 ms of device clock ahead of a device-only timing
 SEED = 0
 STEPS = 5
 PHONEMES = [                     # LJSpeech-style IPA, four lengths
@@ -70,8 +75,13 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median over ``reps`` launches of CUDA-event time, in ms."""
+def cuda_ms(fn, reps: int = 25, warmup: int = 3, device_only: bool = False) -> float:
+    """Median over ``reps`` launches of CUDA-event time, in ms.  The start
+    event is recorded before ``fn`` runs on the host, so the time holds the
+    host's own time per call (a wrapper's checks and launch) where it
+    outlasts the queue.  With ``device_only`` each call waits behind a ~1 ms
+    device sleep, so that the start event runs after the host has queued
+    ``fn``'s kernels: the device's time alone (``device_ms`` in the records)."""
     import torch
 
     for _ in range(warmup):
@@ -80,6 +90,8 @@ def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
         fn()
         stop.record()
@@ -134,6 +146,8 @@ def phase_kernels(torch, K):
                     + beta[:, :, None], alpha[None, :, None])
         pad = (k * d - d) // 2
         ms = cuda_ms(lambda: K.mrf_round(*args, k=k, d=d, residual=res))
+        device_ms = cuda_ms(lambda: K.mrf_round(*args, k=k, d=d, residual=res),
+                            device_only=True)
         plain_ms = cuda_ms(lambda: K.mrf_round_plain(*args, k=k, d=d, residual=res))
         library_ms = cuda_ms(lambda: F.conv1d(act, w, bias, padding=pad, dilation=d))
         allow_tf32 = torch.backends.cudnn.allow_tf32
@@ -149,11 +163,12 @@ def phase_kernels(torch, K):
         least_ms, bound_by = bound_ms(nbytes, 3 * flops, TF32_FLOP_PER_S)
         f32_ms, f32_by = bound_ms(nbytes, flops)
         rows.append({"stage": stage, "shape": f"B={b} C={c} T={t} k={k} d={d} +residual",
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-                     "library_tf32_ms": library_tf32_ms, "bound_ms": least_ms,
+                     "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "library_tf32_ms": library_tf32_ms, "bound_ms": least_ms,
                      "bound_by": bound_by, "bound_f32_ms": f32_ms, "bound_f32_by": f32_by,
                      "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
-        print(f"mrf_round {stage} (B={b} C={c} T={t} k={k} d={d}): {ms:.4f} ms, plain "
+        print(f"mrf_round {stage} (B={b} C={c} T={t} k={k} d={d}): {ms:.4f} ms (device "
+              f"{device_ms:.4f}), plain "
               f"{plain_ms:.4f} ms, F.conv1d {library_ms:.4f} ms (TF32 {library_tf32_ms:.4f}), "
               f"bound {least_ms:.4f} ms 3xTF32 / {f32_ms:.4f} ms f32", flush=True)
     return rows
@@ -325,13 +340,16 @@ def phase_serve(torch, K, profile=False):
 
 def phase_train_kernels(torch, KA, KM):
     """adain_snake forward (K1f) and backward (K1b) against their plain
-    versions at the stage-1 decoder's two row lengths, masked and not, and
+    versions, masked and not, at the stage-1 decoder's two row lengths in
+    the step below (stage 0, stage 1), at the two of configs/ljspeech.yml's
+    max_len 400 (4000, 24001 frames) and at a short odd row, each with the
+    path its T takes.
     maximum_path (K3) at the aligner's width: mixed lengths, a row with
     text_len == mel_len, and ties."""
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(SEED)
     rows = []
-    for c, t in ((256, 1920), (128, 11521)):
+    for c, t in ((256, 1920), (128, 11521), (256, 4000), (128, 24001), (256, 37)):
         b = 16
         x = torch.randn((b, c, t), generator=g, device=dev)
         gamma = 0.3 * torch.randn((b, c), generator=g, device=dev)
@@ -363,22 +381,33 @@ def phase_train_kernels(torch, KA, KM):
                           f"adain_snake bwd {name} {c}x{t}: {err} > 1e-4 * {scale}")
                     bwd_err = max(bwd_err, err)
             row = {"shape": f"B={b} C={c} T={t}", "masked": masked, "fwd_max_abs_err": fwd_err,
-                   "max_abs_y": y_max, "bwd_max_abs_err": bwd_err}
+                   "max_abs_y": y_max, "bwd_max_abs_err": bwd_err,
+                   "fwd_path": KA.plan(t), "bwd_path": KA.plan(t, backward=True)}
             if not masked:        # the training decoder's form (lengths None)
                 bwd_args = (x, gamma, beta, alpha, mean, rstd, None, dy)
                 row["fwd_ms"] = cuda_ms(lambda: KA.adain_snake_fwd(*args))
+                row["fwd_device_ms"] = cuda_ms(lambda: KA.adain_snake_fwd(*args),
+                                               device_only=True)
                 row["fwd_plain_ms"] = cuda_ms(lambda: KA.adain_snake_plain(*args))
                 row["bwd_ms"] = cuda_ms(lambda: KA.adain_snake_bwd(*bwd_args))
+                row["bwd_device_ms"] = cuda_ms(lambda: KA.adain_snake_bwd(*bwd_args),
+                                               device_only=True)
                 row["bwd_plain_ms"] = cuda_ms(lambda: KA.adain_snake_bwd_plain(*bwd_args))
                 n = b * c * t          # operations per frame as written, each sine one
                 row["fwd_bound_ms"], row["fwd_bound_by"] = bound_ms(
                     4.0 * (2 * n + 4 * b * c), 14.0 * n)
                 row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(
                     4.0 * (3 * n + 6 * b * c), 32.0 * n)
-                print(f"adain_snake B={b} C={c} T={t}: fwd {row['fwd_ms']:.4f} ms (plain "
-                      f"{row['fwd_plain_ms']:.4f}, bound {row['fwd_bound_ms']:.4f}); bwd "
-                      f"{row['bwd_ms']:.4f} ms (plain {row['bwd_plain_ms']:.4f}, bound "
-                      f"{row['bwd_bound_ms']:.4f})", flush=True)
+                for d in ("fwd", "bwd"):
+                    row[f"{d}_bound_share"] = row[f"{d}_bound_ms"] / row[f"{d}_ms"]
+                    row[f"{d}_device_bound_share"] = (row[f"{d}_bound_ms"]
+                                                      / row[f"{d}_device_ms"])
+                print(f"adain_snake B={b} C={c} T={t}: " + "; ".join(
+                    f"{d} {row[f'{d}_ms']:.4f} ms, {row[f'{d}_bound_share']:.3f} of the bound "
+                    f"(device {row[f'{d}_device_ms']:.4f}, "
+                    f"{row[f'{d}_device_bound_share']:.3f}; plain {row[f'{d}_plain_ms']:.4f}, "
+                    f"bound {row[f'{d}_bound_ms']:.4f}; {row[f'{d}_path']})"
+                    for d in ("fwd", "bwd")), flush=True)
             rows.append(row)
 
     b, t_text, t_mel = 16, 128, 104
@@ -400,11 +429,13 @@ def phase_train_kernels(torch, KA, KM):
                "max_abs_err": float((path - ref).abs().max())}
         if case == "mixed":
             row["ms"] = cuda_ms(lambda: KM.maximum_path(values, tl, ml))
+            row["device_ms"] = cuda_ms(lambda: KM.maximum_path(values, tl, ml),
+                                       device_only=True)
             row["plain_ms"] = cuda_ms(lambda: KM.maximum_path_plain(values, tl, ml), reps=5)
             row["bound_ms"], row["bound_by"] = bound_ms(4.0 * 2 * b * t_text * t_mel,
                                                         6.0 * b * t_text * t_mel)
             print(f"maximum_path B={b} T_text={t_text} T_mel={t_mel}: {row['ms']:.4f} ms "
-                  f"(plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.6f}; T_mel={t_mel} "
+                  f"(device {row['device_ms']:.4f}, plain {row['plain_ms']:.4f}, bound {row['bound_ms']:.6f}; T_mel={t_mel} "
                   "dependent frame steps, each a block barrier, and as many backtrack steps)",
                   flush=True)
         rows.append(row)
@@ -500,7 +531,7 @@ def phase_train(torch, KA, KM, K2, profile=False, dev="cuda", mp=None, asr_cfg=N
         gen = torch.Generator(dev).manual_seed(SEED)
         out["profile"] = profile_request(
             torch, lambda: float(trainer.step(tb, 96, 96, generator=gen)["mel_loss"]),
-            mark=("adain_snake_fwd_kernel", "adain_snake_bwd_kernel", "maximum_path_kernel"))
+            mark=("adain_snake_fwd", "adain_snake_bwd", "maximum_path_kernel"))
     return out
 
 
@@ -554,7 +585,7 @@ def main() -> None:
         "replaces": "styletts2_tpu/ops/pallas/mrf_round_kernel.py:183",
         "launches": serve["runs"]["batched"]["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows if "max_abs_err" in r),
-        "ms": s1["ms"], "plain_ms": s1["plain_ms"], "bound_ms": s1["bound_ms"],
+        "ms": s1["ms"], "device_ms": s1["device_ms"], "plain_ms": s1["plain_ms"], "bound_ms": s1["bound_ms"],
         "bound_by": s1["bound_by"], "library_ms": s1["library_ms"], "shape": s1["shape"],
         "bound_f32_ms": s1["bound_f32_ms"], "library_tf32_ms": s1["library_tf32_ms"],
     }]
@@ -569,16 +600,17 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
             "replaces": replaces, "launches": train["launches"][name],
             "max_abs_err": max(r[f"{direction}_max_abs_err"] for r in k1_err),
-            "ms": k1[f"{direction}_ms"], "plain_ms": k1[f"{direction}_plain_ms"],
+            "ms": k1[f"{direction}_ms"], "device_ms": k1[f"{direction}_device_ms"],
+            "plain_ms": k1[f"{direction}_plain_ms"],
             "bound_ms": k1[f"{direction}_bound_ms"], "bound_by": k1[f"{direction}_bound_by"],
-            "library_ms": None, "shape": k1["shape"]})
+            "library_ms": None, "shape": k1["shape"], "path": k1[f"{direction}_path"]})
     kernels.append({
         "name": "maximum_path", "route": "cuda",
         "source": "styletts2_tpu_torch/csrc/maximum_path.cu",
         "replaces": "styletts2_tpu/ops/pallas/monotonic_kernel.py:80",
         "launches": train["launches"]["maximum_path"],
         "max_abs_err": max(r["max_abs_err"] for r in train_kernel_rows if "case" in r),
-        "ms": k3["ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
+        "ms": k3["ms"], "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None, "shape": k3["shape"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -15,7 +15,8 @@ Every frame gets an output and a gradient; only the statistics are masked.
 ``adain_snake`` takes a tensor on the CPU to ``adain_snake_plain``
 (differentiated by autograd) and a CUDA tensor to the kernels inside
 ``AdainSnake``, whose backward is the K1b kernel; anything else raises.
-``fwd_launches`` and ``bwd_launches`` count kernel launches.
+``fwd_launches`` and ``bwd_launches`` count kernel launches; ``plan`` names
+the path a row length takes on the card (the kernel picks it from T).
 """
 
 from __future__ import annotations
@@ -44,53 +45,88 @@ def _lib() -> ctypes.CDLL:
         lib.adain_snake_fwd_f32.restype = i
         lib.adain_snake_bwd_f32.argtypes = [p] * 12 + [i] * 4 + [p]
         lib.adain_snake_bwd_f32.restype = i
+        lib.adain_snake_plan.argtypes = [i] * 3 + [p] * 3
+        lib.adain_snake_plan.restype = i
         _LIB = lib
     return _LIB
 
 
-def _check(x, lengths, **rows):
-    """x (B, C, T); ``rows`` maps a name to (tensor, shape); all f32,
-    contiguous and on x's device; lengths None or (B,) int32."""
+def _check(x, lengths, rows=()):
+    """x (B, C, T); ``rows`` holds (name, tensor, shape) triples; all f32,
+    contiguous and on x's device; lengths None or (B,) int32.  One
+    combined test a tensor on the common path; ``_reject`` says what is
+    wrong."""
     if x.dim() != 3:
         raise ValueError(f"adain_snake: x has shape {tuple(x.shape)}, needs (B, C, T)")
-    b = x.shape[0]
-    for name, (a, shape) in {"x": (x, tuple(x.shape)), **rows}.items():
-        if a.device != x.device:
-            raise ValueError(f"adain_snake: {name} on {a.device}, x on {x.device}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"adain_snake: {name} is {a.dtype}, needs float32")
-        if tuple(a.shape) != shape:
-            raise ValueError(f"adain_snake: {name} has shape {tuple(a.shape)}, needs {shape}")
-        if not a.is_contiguous():
-            raise ValueError(f"adain_snake: {name} is not contiguous")
-    if lengths is not None and (lengths.device != x.device or lengths.dtype != torch.int32
-                                or tuple(lengths.shape) != (b,)
-                                or not lengths.is_contiguous()):
+    dev = x.device
+    for name, a, shape in (("x", x, x.shape), *rows):
+        if not (a.dtype == torch.float32 and a.device == dev and a.shape == shape
+                and a.is_contiguous()):
+            _reject(name, a, shape, dev)
+    if lengths is not None and not (lengths.dtype == torch.int32 and lengths.device == dev
+                                    and lengths.shape == x.shape[:1]
+                                    and lengths.is_contiguous()):
         raise ValueError("adain_snake: lengths must be None or a contiguous (B,) int32 "
                          "tensor on x's device")
     if x.numel() == 0:
         raise ValueError("adain_snake: empty input")
 
 
+def _reject(name, a, shape, dev):
+    if a.device != dev:
+        raise ValueError(f"adain_snake: {name} on {a.device}, x on {dev}")
+    if a.dtype != torch.float32:
+        raise TypeError(f"adain_snake: {name} is {a.dtype}, needs float32")
+    if a.shape != shape:
+        raise ValueError(f"adain_snake: {name} has shape {tuple(a.shape)}, needs "
+                         f"{tuple(shape)}")
+    raise ValueError(f"adain_snake: {name} is not contiguous")
+
+
 def _args(x, gamma, beta, alpha):
     b, c, _ = x.shape
-    return {"gamma": (gamma, (b, c)), "beta": (beta, (b, c)), "alpha": (alpha, (c,))}
+    return (("gamma", gamma, (b, c)), ("beta", beta, (b, c)), ("alpha", alpha, (c,)))
 
 
 def _stream(x):
     return x.device.index, torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _aligned(a: torch.Tensor) -> torch.Tensor:
+    """``a``, or a copy of it when its data does not start on a 16-byte
+    boundary (a view with a storage offset): the kernels load each row's
+    body as 16-byte vectors from that boundary."""
+    return a if a.data_ptr() % 16 == 0 else a.clone()
+
+
+def plan(t: int, backward: bool = False) -> str:
+    """The path a row of ``t`` frames takes on the current CUDA device:
+    ``"rows GxV"`` (G threads per row, V 16-byte vectors each, the row in
+    registers), ``"long, shared-memory cache"`` or ``"long, L2 re-read"``."""
+    path, threads, vecs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rc = _lib().adain_snake_plan(t, int(backward), torch.cuda.current_device(),
+                                 ctypes.byref(path), ctypes.byref(threads), ctypes.byref(vecs))
+    if rc != 0:
+        raise RuntimeError(f"adain_snake_plan failed: cudaError_t {rc}")
+    return {0: f"rows {threads.value}x{vecs.value}", 1: "long, shared-memory cache",
+            2: "long, L2 re-read"}[path.value]
+
+
 def adain_snake_fwd(x, gamma, beta, alpha, lengths=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1f on CUDA tensors: (y, mean, rstd)."""
-    _check(x, lengths, **_args(x, gamma, beta, alpha))
+    _check(x, lengths, _args(x, gamma, beta, alpha))
+    return _fwd(x, gamma, beta, alpha, lengths)
+
+
+def _fwd(x, gamma, beta, alpha, lengths):
+    """K1f on checked inputs."""
     if x.device.type != "cuda":
         raise ValueError(f"adain_snake_fwd: no kernel for device {x.device}")
     b, c, t = x.shape
+    x = _aligned(x)
     y = torch.empty_like(x)
-    mean = torch.empty((b, c), device=x.device, dtype=torch.float32)
-    rstd = torch.empty_like(mean)
+    mean, rstd = torch.empty_like(gamma), torch.empty_like(gamma)
     rc = _lib().adain_snake_fwd_f32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), alpha.data_ptr(),
         None if lengths is None else lengths.data_ptr(), y.data_ptr(), mean.data_ptr(),
@@ -106,13 +142,19 @@ def adain_snake_bwd(x, gamma, beta, alpha, mean, rstd, lengths, dy
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """K1b on CUDA tensors: (dx, dgamma, dbeta, dalpha per row (B, C))."""
     b, c, t = x.shape
-    _check(x, lengths, **_args(x, gamma, beta, alpha), mean=(mean, (b, c)),
-           rstd=(rstd, (b, c)), dy=(dy, (b, c, t)))
+    _check(x, lengths, _args(x, gamma, beta, alpha)
+           + (("mean", mean, (b, c)), ("rstd", rstd, (b, c)), ("dy", dy, (b, c, t))))
+    return _bwd(x, gamma, beta, alpha, mean, rstd, lengths, dy)
+
+
+def _bwd(x, gamma, beta, alpha, mean, rstd, lengths, dy):
+    """K1b on checked inputs."""
     if x.device.type != "cuda":
         raise ValueError(f"adain_snake_bwd: no kernel for device {x.device}")
+    b, c, t = x.shape
+    x, dy = _aligned(x), _aligned(dy)
     dx = torch.empty_like(x)
-    dgamma = torch.empty((b, c), device=x.device, dtype=torch.float32)
-    dbeta, dalpha = torch.empty_like(dgamma), torch.empty_like(dgamma)
+    dgamma, dbeta, dalpha = (torch.empty_like(gamma) for _ in range(3))
     rc = _lib().adain_snake_bwd_f32(
         x.data_ptr(), gamma.data_ptr(), beta.data_ptr(), alpha.data_ptr(), mean.data_ptr(),
         rstd.data_ptr(), None if lengths is None else lengths.data_ptr(), dy.data_ptr(),
@@ -138,8 +180,9 @@ class AdainSnake(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, gamma, beta, alpha, mean, rstd, lengths = ctx.saved_tensors
-        dx, dg, db, da = adain_snake_bwd(x, gamma, beta, alpha, mean, rstd, lengths,
-                                         dy.contiguous())
+        # the saved tensors passed the forward's checks, and autograd gives
+        # dy y's shape, dtype and device
+        dx, dg, db, da = _bwd(x, gamma, beta, alpha, mean, rstd, lengths, dy.contiguous())
         return dx, dg, db, da.sum(0), None
 
 
@@ -148,14 +191,15 @@ def adain_snake(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     """``snake(adain(x), alpha)``.  x (B, C, T) f32; gamma, beta (B, C);
     alpha (C,); lengths None or (B,) int32.  Differentiable in x, gamma,
     beta and alpha on both routes."""
-    _check(x, lengths, **_args(x, gamma, beta, alpha))
+    if (x.device.type == "cuda" and torch.is_grad_enabled()
+            and any(a.requires_grad for a in (x, gamma, beta, alpha))):
+        return AdainSnake.apply(x, gamma, beta, alpha, lengths)    # checks in its forward
+    _check(x, lengths, _args(x, gamma, beta, alpha))
     if x.device.type == "cpu":
         return adain_snake_plain(x, gamma, beta, alpha, lengths)
     if x.device.type != "cuda":
         raise ValueError(f"adain_snake: no kernel for device {x.device}")
-    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, gamma, beta, alpha)):
-        return AdainSnake.apply(x, gamma, beta, alpha, lengths)
-    return adain_snake_fwd(x, gamma, beta, alpha, lengths)[0]
+    return _fwd(x, gamma, beta, alpha, lengths)[0]
 
 
 def mean_rstd_plain(x: torch.Tensor, lengths: Optional[torch.Tensor] = None

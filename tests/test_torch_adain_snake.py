@@ -9,7 +9,8 @@ tests/test_pallas_kernels.py::TestAdainSnakeKernel).  The closed-form
 backward ``adain_snake_bwd_plain`` is held against torch autograd of the
 plain forward and against ``jax.grad`` through the Pallas VJP.  The CUDA
 kernels are held against the plain versions by the tests marked ``cuda``,
-which skip without a GPU, and by chip_smoke.py.
+which skip without a GPU, and by chip_smoke.py; the one numerical change of
+the kernels' backward (one sincos per frame) is held here on the CPU.
 """
 
 import jax
@@ -143,22 +144,86 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         K.adain_snake_fwd(*args, a["lengths"])
 
 
+def test_sincos_form_keeps_k1b_accuracy():
+    """K1b's kernels take one sincos per frame, sin(2au) = 2 sin(au) cos(au):
+    its closed form so written, in f32, against the closed form with
+    sin(2au) (``adain_snake_bwd_plain``), within 1e-5 of each leaf's largest
+    gradient, at |alpha u| above 30 (beyond the training shapes' ~10)."""
+    a = inputs(6, b=3, c=16, t=4096)
+    x, gamma, beta, alpha, dy = (torch.from_numpy(a[k])
+                                 for k in ("x", "gamma", "beta", "alpha", "dy"))
+    gamma, alpha = 4.0 * gamma, 1.5 * alpha            # widen |alpha u|
+    lengths = torch.from_numpy(a["lengths"])
+    mean, rstd = K.mean_rstd_plain(x, lengths)
+    t = x.shape[-1]
+    g1, be, al = (1.0 + gamma)[:, :, None], beta[:, :, None], alpha[None, :, None]
+    xh = (x - mean[:, :, None]) * rstd[:, :, None]
+    u = g1 * xh + be
+    assert float((al * u).abs().max()) > 30.0
+    sn, cs = torch.sin(al * u), torch.cos(al * u)
+    s2 = 2.0 * sn * cs
+    du = dy * (1.0 + s2)
+    dxh = du * g1
+    keep = torch.arange(t)[None, None, :] < lengths[:, None, None]
+    n = torch.clamp(lengths, min=1).to(x.dtype)[:, None, None]
+    corr = (dxh.sum(-1, keepdim=True) + xh * (dxh * xh).sum(-1, keepdim=True)) / n
+    sincos = [rstd[:, :, None] * (dxh - torch.where(keep, corr, torch.zeros_like(corr))),
+              (du * xh).sum(-1), du.sum(-1),
+              (dy * (u * s2 / al - sn * sn / (al * al))).sum(-1)]
+    ref = K.adain_snake_bwd_plain(x, gamma, beta, alpha, mean, rstd, lengths, dy)
+    for got, want, name in zip(sincos, ref, ("dx", "dgamma", "dbeta", "dalpha")):
+        err, scale = float((got - want).abs().max()), float(want.abs().max())
+        assert err <= 1e-5 * scale, f"{name}: {err} > 1e-5 * {scale}"
+
+
+# (B, C, T), the paths of K1f and K1b (``adain_snake.plan``) and the offset,
+# in floats, of x and dy from a 16-byte boundary: the stage-1 decoder's two
+# row lengths, then small rows that cover every instantiation and both
+# long-row forms, with T = 0, 1, 2 and 3 mod 4 (rows starting off a 16-byte
+# boundary), and inputs that are views one float into their storage (the
+# wrapper copies them to an aligned base).
+GPU_CASES = [
+    ((4, 256, 1920), "rows 128x4", "rows 128x4", 0),
+    ((2, 128, 11521), "rows 384x8", "rows 768x4", 0),
+    ((4, 8, 37), "rows 128x4", "rows 128x4", 0),
+    ((4, 8, 1919), "rows 128x4", "rows 128x4", 0),
+    ((4, 8, 4002), "rows 256x4", "rows 256x4", 0),
+    ((4, 8, 16003), "rows 1024x6", "rows 1024x4", 0),
+    ((4, 8, 24001), "rows 1024x6", "long, shared-memory cache", 0),
+    ((4, 8, 30002), "long, shared-memory cache", "long, shared-memory cache", 0),
+    ((4, 8, 60001), "long, L2 re-read", "long, L2 re-read", 0),
+    ((4, 8, 1921), "rows 128x4", "rows 128x4", 1),
+]
+
+
+def at_offset(a: torch.Tensor, offset: int) -> torch.Tensor:
+    """``a``'s values in a contiguous view ``offset`` floats into a buffer."""
+    if offset == 0:
+        return a
+    buf = torch.empty(a.numel() + offset, dtype=a.dtype, device=a.device)
+    view = buf[offset:].view(a.shape)
+    view.copy_(a)
+    return view
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 256, 1920), (2, 128, 11521)])
+@pytest.mark.parametrize("shape,fwd_path,bwd_path,offset", GPU_CASES)
 @pytest.mark.parametrize("masked", [True, False])
-def test_kernels_match_plain_on_gpu(shape, masked):
+def test_kernels_match_plain_on_gpu(shape, fwd_path, bwd_path, offset, masked):
     """K1f against adain_snake_plain (1e-5 * max|y|), K1b against the closed
-    form and autograd of the plain forward (1e-4 * max|grad|), at the
-    stage-1 decoder's two row lengths."""
+    form and autograd of the plain forward (1e-4 * max|grad|), on the path
+    each T takes; masked rows have lengths T, inside the row, 0 and 1."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     b, c, t = shape
+    assert (K.plan(t), K.plan(t, backward=True)) == (fwd_path, bwd_path)
     dev = torch.device("cuda")
     a = {k: (torch.from_numpy(v).to(dev) if v is not None else None)
          for k, v in inputs(5, b, c, t, masked).items()}
     if masked:
-        a["lengths"] = torch.tensor([t, t * 3 // 5, 40, t // 2][:b], dtype=torch.int32,
-                                    device=dev)
+        a["lengths"] = torch.tensor([t, t * 3 // 5, 0, 1][:b], dtype=torch.int32, device=dev)
+    a["x"], a["dy"] = at_offset(a["x"], offset), at_offset(a["dy"], offset)
+    assert (a["x"].data_ptr() % 16 == 0) == (offset == 0)
     args = (a["x"], a["gamma"], a["beta"], a["alpha"], a["lengths"])
     fwd, bwd = K.fwd_launches, K.bwd_launches
     y, mean, rstd = K.adain_snake_fwd(*args)
