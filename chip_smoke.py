@@ -28,17 +28,24 @@ Phases, each of which exits non-zero when it fails:
    weights and take 1 + 5 pre-TMA steps through ``train.loop.run_stage1``
    (batch 16, clip 96 aligner frames, f32, TF32 off), counting the kernels'
    launches in each step;
-5. print the kernels line, the card's name and power limit, and, last,
+5. train TMA: the same with the TMA phase from the first step (MPD, MSD
+   and a Whisper-base encoder added, the discriminator step, the GAN and SLM
+   losses, the aligner and pitch extractor trained): finite losses
+   including ``d_loss``, K1f/K1b/K3 48/48/1 launches a step, the seven
+   trained nets moved and the Whisper encoder not, the step median and the
+   peak memory of the phase;
+6. print the kernels line, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds a
 torch.profiler breakdown of a batched and a single request to the serve
-phase and of one training step to the train phase.
+phase and of one training step to each train phase.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import logging
 import math
@@ -443,26 +450,41 @@ def phase_train_kernels(torch, KA, KM):
 
 
 def phase_train(torch, KA, KM, K2, profile=False, dev="cuda", mp=None, asr_cfg=None,
-                widths=(1024, 64), b=16, t_text=128):
-    """1 warm + 5 timed pre-TMA stage-1 steps at the full LJSpeech width
-    through run_stage1, with the kernels' launches counted per step.  The
-    keyword arguments size a rehearsal on the CPU (``dev="cpu"``, a small
-    ``mp``); the defaults are the LJSpeech configuration."""
+                widths=(1024, 64), b=16, t_text=128, tma=False, whisper_cfg=None,
+                mpd_channels=None, msd_width=32, card=""):
+    """1 warm + 5 timed stage-1 steps at the full LJSpeech width through
+    run_stage1, with the kernels' launches counted per step: before TMA,
+    or with ``tma`` from the first step (``TMA_epoch`` 0: the discriminator
+    step and the generator step with the GAN and SLM losses, over the
+    STAGE1_TMA_NETS with a Whisper-base encoder).  The keyword arguments
+    size a rehearsal on the CPU (``dev="cpu"``, a small ``mp``); the
+    defaults are the LJSpeech configuration."""
     import numpy as np
     from styletts2_tpu_torch.config import Config, ModelParams
     from styletts2_tpu_torch.models.asr import ASRConfig
-    from styletts2_tpu_torch.models.zoo import STAGE1_NETS, build_nets, init_random_
+    from styletts2_tpu_torch.models.discriminators import MPD_CHANNELS
+    from styletts2_tpu_torch.models.whisper import WhisperConfig
+    from styletts2_tpu_torch.models.zoo import (STAGE1_NETS, STAGE1_TMA_NETS, build_nets,
+                                                init_random_)
     from styletts2_tpu_torch.train.loop import run_stage1
-    from styletts2_tpu_torch.train.stage1 import TRAINED
+    from styletts2_tpu_torch.train.stage1 import DISCRIMINATORS, TMA_TRAINED, TRAINED
 
     dev = torch.device(dev)
     cfg, mp = Config(), mp or ModelParams()
+    if tma:
+        cfg = dataclasses.replace(cfg, loss_params=dataclasses.replace(cfg.loss_params,
+                                                                       TMA_epoch=0))
     asr_cfg = asr_cfg or ASRConfig(n_token=mp.n_token)
+    configs = {"model": mp, "whisper": whisper_cfg or WhisperConfig()}
     nets = init_random_(build_nets(mp, decoder_width=widths[0], decoder_asr_res_ch=widths[1],
-                                   nets=STAGE1_NETS, asr_cfg=asr_cfg), SEED)
+                                   nets=STAGE1_TMA_NETS if tma else STAGE1_NETS,
+                                   asr_cfg=asr_cfg, whisper_cfg=configs["whisper"],
+                                   mpd_channels=mpd_channels or MPD_CHANNELS,
+                                   msd_width=msd_width), SEED)
     with torch.no_grad():                          # as in the serve phase
         nets["decoder"].generator.conv_post.weight_g.mul_(0.05)
     nets.to(dev)
+    trained = TMA_TRAINED + DISCRIMINATORS if tma else TRAINED
     n_params = {k: sum(p.numel() for p in v.parameters()) for k, v in nets.items()}
     before = {k: [t.clone() for t in v.state_dict().values()] for k, v in nets.items()}
 
@@ -475,62 +497,67 @@ def phase_train(torch, KA, KM, K2, profile=False, dev="cuda", mp=None, asr_cfg=N
                 "input_lengths": np.full((b,), t_text),
                 "mel_input_length": np.full((b,), 198)} for _ in range(steps)]
     marks, per_step = [], []
+    names = ("adain_snake_fwd", "adain_snake_bwd", "maximum_path", "mrf_round")
+
+    def counts():
+        return dict(zip(names, (KA.fwd_launches, KA.bwd_launches, KM.launches, K2.launches)))
 
     def log_cb(it, metrics):                       # metrics are floats: the step has synced
         marks.append(time.perf_counter())
-        per_step.append({"iter": it, **metrics,
-                         "adain_snake_fwd": KA.fwd_launches, "adain_snake_bwd": KA.bwd_launches,
-                         "maximum_path": KM.launches, "mrf_round": K2.launches})
+        per_step.append({"iter": it, "metrics": metrics, "launches": counts()})
 
     on_card = dev.type == "cuda"
     if on_card:
-        torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
     KA.fwd_launches = KA.bwd_launches = KM.launches = K2.launches = 0
     t0 = time.perf_counter()
-    state = run_stage1(dataclasses.replace(cfg, log_interval=1), {"model": mp},
+    state = run_stage1(dataclasses.replace(cfg, log_interval=1), configs,
                        nets, lambda epoch: iter(batches), max_steps=steps, log_cb=log_cb,
                        device=dev, seed=SEED)
-    launches = {"adain_snake_fwd": KA.fwd_launches, "adain_snake_bwd": KA.bwd_launches,
-                "maximum_path": KM.launches, "mrf_round": K2.launches}
+    launches = counts()
     check(state.iters == steps and len(marks) == steps, f"run_stage1 took {state.iters} steps")
-    prev = {k: 0 for k in launches}
+    want_metrics = {"mel_loss", "g_loss"} | ({"gen_loss", "mono_loss", "s2s_loss", "slm_loss",
+                                              "d_loss"} if tma else set())
+    prev = {k: 0 for k in names}
     for rec in per_step:
-        check(np.isfinite(rec["mel_loss"]) and np.isfinite(rec["g_loss"]),
-              f"non-finite loss at step {rec['iter']}: {rec}")
-        got = {k: rec[k] - prev[k] for k in prev}
+        check(set(rec["metrics"]) == want_metrics
+              and all(np.isfinite(v) for v in rec["metrics"].values()),
+              f"losses at step {rec['iter']}: {rec['metrics']}")
+        got = {k: rec["launches"][k] - prev[k] for k in names}
         want = {"adain_snake_fwd": 48, "adain_snake_bwd": 48, "maximum_path": 1, "mrf_round": 0}
         check(got == (want if on_card else {k: 0 for k in want}),
               f"launches in step {rec['iter']}: {got}")
-        prev = {k: rec[k] for k in prev}
+        prev = rec["launches"]
     step_ms = [1e3 * (b_ - a_) for a_, b_ in zip(marks, marks[1:])]
     warm_ms = 1e3 * (marks[0] - t0)
     peak = torch.cuda.max_memory_allocated() if on_card else 0
     for name, net in nets.items():
         moved = any(not torch.equal(a, w) for a, w in zip(before[name], net.state_dict().values()))
-        check(moved == (name in TRAINED), f"{name} {'moved' if moved else 'did not move'}")
+        check(moved == (name in trained), f"{name} {'moved' if moved else 'did not move'}")
     median_ms = statistics.median(step_ms)
     audio_s = b * frames * 300 / 24000.0
+    label = "train_tma" if tma else "train"
     out = {"params": n_params, "batch": b, "frames": frames, "t_text": t_text, "mel_len": 96,
            "warm_step_ms": warm_ms, "step_ms": step_ms, "median_step_ms": median_ms,
            "audio_s_per_step": audio_s, "train_audio_s_per_s": audio_s / (median_ms / 1e3),
-           "peak_mem_bytes": peak, "losses": [r["mel_loss"] for r in per_step],
-           "launches": launches}
-    print(f"train: {steps} steps, mel_loss {out['losses']}; step {median_ms:.3f} ms median "
+           "peak_mem_bytes": peak, "losses": [r["metrics"] for r in per_step],
+           "launches": launches, "moved": sorted(trained)}
+    print(f"{label}: {steps} steps, losses {out['losses']}; step {median_ms:.3f} ms median "
           f"of {['%.3f' % v for v in step_ms]} (warm {warm_ms:.1f} ms); "
           f"{out['train_audio_s_per_s']:.2f} training audio-s/s; peak memory "
           f"{peak / 2**30:.2f} GiB; launches per step: adain_snake fwd 48, bwd 48, "
-          "maximum_path 1", flush=True)
+          f"maximum_path 1; moved: {out['moved']}; {card}", flush=True)
     if profile:
         from styletts2_tpu_torch.train.stage1 import Stage1Trainer
 
-        trainer = Stage1Trainer(cfg, {"model": mp}, nets, state.optimizer)
+        trainer = Stage1Trainer(cfg, configs, nets, state.optimizer)
         tb = {"waves": torch.from_numpy(batches[0]["waves"]).to(dev)}
         for k in ("mel_input_length", "texts", "input_lengths"):
             tb[k] = torch.from_numpy(batches[0][k]).long().to(dev)
         gen = torch.Generator(dev).manual_seed(SEED)
         out["profile"] = profile_request(
-            torch, lambda: float(trainer.step(tb, 96, 96, generator=gen)["mel_loss"]),
+            torch, lambda: float(trainer.step(tb, 96, 96, generator=gen, tma=tma)["g_loss"]),
             mark=("adain_snake_fwd", "adain_snake_bwd", "maximum_path_kernel"))
     return out
 
@@ -576,7 +603,10 @@ def main() -> None:
     kernel_rows = phase_kernels(torch, K)
     train_kernel_rows = phase_train_kernels(torch, KA, KM)
     serve = phase_serve(torch, K, profile=profile)
-    train = phase_train(torch, KA, KM, K, profile=profile)
+    train = phase_train(torch, KA, KM, K, profile=profile, card=card)
+    gc.collect()                          # the pre-TMA nets and optimizer go first
+    torch.cuda.empty_cache()
+    train_tma = phase_train(torch, KA, KM, K, profile=profile, tma=True, card=card)
 
     timed = {r["stage"]: r for r in kernel_rows if "ms" in r}
     s1 = timed["stage1"]
@@ -599,6 +629,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
             "replaces": replaces, "launches": train["launches"][name],
+            "launches_tma": train_tma["launches"][name],
             "max_abs_err": max(r[f"{direction}_max_abs_err"] for r in k1_err),
             "ms": k1[f"{direction}_ms"], "device_ms": k1[f"{direction}_device_ms"],
             "plain_ms": k1[f"{direction}_plain_ms"],
@@ -609,6 +640,7 @@ def main() -> None:
         "source": "styletts2_tpu_torch/csrc/maximum_path.cu",
         "replaces": "styletts2_tpu/ops/pallas/monotonic_kernel.py:80",
         "launches": train["launches"]["maximum_path"],
+        "launches_tma": train_tma["launches"]["maximum_path"],
         "max_abs_err": max(r["max_abs_err"] for r in train_kernel_rows if "case" in r),
         "ms": k3["ms"], "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None, "shape": k3["shape"]})
@@ -618,6 +650,7 @@ def main() -> None:
         {"card": card, "build_s": build_s, "nvcc_logs": logs, "mrf_round_sass_mma": sass,
          "kernel_checks": kernel_rows,
          "train_kernel_checks": train_kernel_rows, "serve": serve, "train": train,
+         "train_tma": train_tma,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -28,7 +28,7 @@ from .config import ModelParams
 from .models.decoder.istftnet import decoder_apply
 from .models.diffusion import sampler as S
 from .models.diffusion.denoiser import denoiser_cfg_apply
-from .models.plbert import PLBertConfig, plbert_apply, resize_position_embeddings
+from .models.plbert import PLBertConfig, grown_position_table, plbert_apply
 from .models.predictor import duration_encoder_apply, predict_durations, prosody_f0n_apply
 from .models.text_encoder import text_encoder_apply
 from .nn.linear import linear
@@ -74,8 +74,9 @@ class InferenceEngine:
         self.cleaner = TextCleaner()
         # PL-BERT position capacity >= 1024 (PLBERT_MAX_POSITION overrides),
         # grown by repeating the last learned row (ref: Utils/PLBERT/util.py:8-65)
+        # in the engine's own copy of the table: the caller's nets keep theirs
         target = max(int(os.environ.get("PLBERT_MAX_POSITION", 0) or 0), 1024)
-        resize_position_embeddings(self.nets["bert"], target)
+        self.bert_positions = grown_position_table(self.nets["bert"], target)
 
     def tokens_from_phonemes(self, phonemes: str) -> np.ndarray:
         toks = self.cleaner(phonemes)
@@ -106,7 +107,8 @@ class InferenceEngine:
         nets, mp = self.nets, self.model_params
         mask = torch.arange(tokens.shape[1], device=self.device)[None, :] < lengths[:, None]
         t_en = text_encoder_apply(nets["text_encoder"], tokens, lengths)
-        bert_dur = plbert_apply(nets["bert"], tokens, mask.to(torch.int32))
+        bert_dur = plbert_apply(nets["bert"], tokens, mask.to(torch.int32),
+                                positions=self.bert_positions)
         be = nets["bert_encoder"]
         d_en = linear(bert_dur, be.weight, be.bias).transpose(1, 2)
 

@@ -63,16 +63,14 @@ class PLBert(nn.Module):
 
 
 @torch.no_grad()
-def resize_position_embeddings(m: PLBert, target: int) -> None:
-    """Grow the position table in place to ``target`` rows by repeating the
-    last row (ref: Utils/PLBERT/util.py:31-65)."""
-    old = m.embeddings["position_embeddings"]
-    cur, dim = old.weight.shape
+def grown_position_table(m: PLBert, target: int) -> torch.Tensor:
+    """The position table grown to ``target`` rows by repeating the last row
+    (ref: Utils/PLBERT/util.py:31-65); a new tensor, ``m`` is left alone."""
+    w = m.embeddings["position_embeddings"].weight.detach()
+    cur, dim = w.shape
     if target <= cur:
-        return
-    new = nn.Embedding(target, dim).to(old.weight.device, old.weight.dtype)
-    new.weight.copy_(torch.cat([old.weight, old.weight[-1:].expand(target - cur, dim)]))
-    m.embeddings["position_embeddings"] = new
+        return w.clone()
+    return torch.cat([w, w[-1:].expand(target - cur, dim)])
 
 
 def _ln(x, mod: nn.LayerNorm, eps: float):
@@ -84,14 +82,18 @@ def _lin(x, mod: nn.Linear):
 
 
 def plbert_apply(m: PLBert, input_ids: torch.Tensor,
-                 attention_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """input_ids (B, L), attention_mask (B, L) 1 = keep -> (B, L, hidden)."""
+                 attention_mask: Optional[torch.Tensor] = None,
+                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """input_ids (B, L), attention_mask (B, L) 1 = keep -> (B, L, hidden);
+    ``positions`` replaces the module's position table (a grown copy)."""
     cfg = m.cfg
     eps = cfg.layer_norm_eps
     emb = m.embeddings
     length = input_ids.shape[1]
     x = cm.embedding(emb["word_embeddings"], input_ids)
-    x = (x + emb["position_embeddings"].weight[:length][None]
+    if positions is None:
+        positions = emb["position_embeddings"].weight
+    x = (x + positions[:length][None]
          + emb["token_type_embeddings"].weight[0][None, None, :])
     x = _ln(x, emb["LayerNorm"], eps)
     h = _lin(x, m.encoder["embedding_hidden_mapping_in"])

@@ -1,5 +1,6 @@
 """The nets of the LJSpeech zoo (ref: models.py:1002-1110): the inference
-nets and stage 1's aligner, pitch extractor and style encoder; a seeded
+nets, stage 1's aligner, pitch extractor and style encoder, and its TMA
+phase's discriminators and Whisper encoder; a seeded
 random initialisation; and the bridge from the JAX package's parameter
 trees.
 
@@ -22,26 +23,34 @@ from .asr import ASRCNN, ASRConfig
 from .common import SNConv2d
 from .decoder.istftnet import Decoder
 from .diffusion.denoiser import Denoiser
+from .discriminators import MPD_CHANNELS, MultiPeriodDiscriminator, MultiResSpecDiscriminator
 from .jdc import JDC, JDCConfig
 from .plbert import PLBert, PLBertConfig
 from .predictor import ProsodyPredictor
 from .style_encoder import StyleEncoder
 from .text_encoder import TextEncoder
+from .whisper import WhisperConfig, WhisperEncoder
 
 INFERENCE_NETS = ("bert", "bert_encoder", "predictor", "decoder", "text_encoder",
                   "diffusion")
 # stage 1 before TMA: the trained text encoder, style encoder and decoder,
 # and the frozen aligner and pitch extractor
 STAGE1_NETS = ("text_encoder", "style_encoder", "decoder", "text_aligner", "pitch_extractor")
+# stage 1 from TMA on: the discriminators and the frozen Whisper encoder too
+STAGE1_TMA_NETS = STAGE1_NETS + ("mpd", "msd", "slm_encoder")
 
 
 def build_nets(mp: ModelParams, plbert_cfg: PLBertConfig = PLBertConfig(),
                decoder_width: int = 1024, decoder_asr_res_ch: int = 64,
                nets: Sequence[str] = INFERENCE_NETS, asr_cfg: Optional[ASRConfig] = None,
-               jdc_cfg: JDCConfig = JDCConfig()) -> nn.ModuleDict:
+               jdc_cfg: JDCConfig = JDCConfig(),
+               whisper_cfg: WhisperConfig = WhisperConfig(),
+               mpd_channels: Sequence[int] = MPD_CHANNELS, msd_width: int = 32
+               ) -> nn.ModuleDict:
     """The named nets of the single-speaker zoo with zero-filled parameters
     (fill them with ``init_random_`` or ``load_jax_params``).  ``asr_cfg``
-    defaults to ``ASRConfig(n_token=mp.n_token)``."""
+    defaults to ``ASRConfig(n_token=mp.n_token)``; ``whisper_cfg`` sizes
+    the ``slm_encoder`` (Whisper-base by default)."""
     if mp.multispeaker or mp.decoder.type != "istftnet":
         raise NotImplementedError("the port builds the single-speaker iSTFTNet zoo only")
     tr = mp.diffusion.transformer
@@ -61,6 +70,9 @@ def build_nets(mp: ModelParams, plbert_cfg: PLBertConfig = PLBertConfig(),
         "style_encoder": lambda: StyleEncoder(mp.dim_in, mp.style_dim, mp.hidden_dim),
         "text_aligner": lambda: ASRCNN(asr_cfg or ASRConfig(n_token=mp.n_token)),
         "pitch_extractor": lambda: JDC(jdc_cfg),
+        "mpd": lambda: MultiPeriodDiscriminator(mpd_channels),
+        "msd": lambda: MultiResSpecDiscriminator(msd_width),
+        "slm_encoder": lambda: WhisperEncoder(whisper_cfg),
     }
     unknown = [n for n in nets if n not in makers]
     if unknown:

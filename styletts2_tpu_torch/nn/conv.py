@@ -47,3 +47,22 @@ def avg_pool2d(x: torch.Tensor, window: int = 2) -> torch.Tensor:
 def interpolate_nearest_2x(x: torch.Tensor) -> torch.Tensor:
     """F.interpolate(scale_factor=2, mode='nearest') on the trailing axis."""
     return torch.repeat_interleave(x, 2, dim=-1)
+
+
+def interpolate_linear(x: torch.Tensor, out_len: int) -> torch.Tensor:
+    """``F.interpolate(mode='linear', align_corners=False)`` to ``out_len``
+    over the trailing axis, written out as the JAX package's
+    ``nn/conv.py::interpolate_linear`` computes it: source positions
+    ``(i + 0.5) * t_in/out_len - 0.5`` in f32, clamped into the input, then
+    a gather of the two neighbours.  ``F.interpolate`` rounds its positions
+    differently in the last bits."""
+    t_in = x.shape[-1]
+    scale = torch.tensor(t_in / out_len, dtype=torch.float32)
+    pos = (torch.arange(out_len, dtype=torch.float32) + 0.5) * scale - 0.5
+    pos = torch.clamp(pos, 0.0, t_in - 1).to(x.device)
+    lo = torch.floor(pos).to(torch.int64)
+    hi = torch.clamp(lo + 1, max=t_in - 1)
+    frac = (pos - lo).to(x.dtype)
+    xl = torch.index_select(x, -1, lo)
+    xh = torch.index_select(x, -1, hi)
+    return xl + (xh - xl) * frac

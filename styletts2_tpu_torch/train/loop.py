@@ -1,5 +1,5 @@
-"""The stage-1 training driver before TMA (the port of the JAX package's
-``train/loop.py::run_stage1`` for the epochs before ``TMA_epoch``).
+"""The stage-1 training driver (the port of the JAX package's
+``train/loop.py::run_stage1``), before and from ``TMA_epoch``.
 
 The host loop owns epochs, batches and the clip-length buckets; each step is
 ``Stage1Trainer.step`` on one device.  Checkpointing, validation, resume
@@ -62,14 +62,15 @@ def run_stage1(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
                max_steps: Optional[int] = None,
                log_cb: Optional[Callable[[int, Dict], None]] = None,
                device=None, seed: int = 0) -> TrainState:
-    """Train ``nets`` (the ``models.zoo.STAGE1_NETS``) in place.
+    """Train ``nets`` in place: the ``models.zoo.STAGE1_NETS``, and the
+    ``STAGE1_TMA_NETS`` when the run reaches ``cfg.loss_params.TMA_epoch``.
 
     ``train_loader(epoch)`` yields batches of numpy arrays: ``waves`` (B,
     T_wav) f32, ``mel_input_length`` (B,), ``texts`` (B, T_text) and
-    ``input_lengths`` (B,).  ``configs`` holds ``model`` (ModelParams).
-    Batches whose clip would be under 40 aligner frames
-    are skipped (the style encoder needs 80 mel frames).  Raises
-    ``NotImplementedError`` on reaching ``TMA_epoch``.
+    ``input_lengths`` (B,).  ``configs`` holds ``model`` (ModelParams) and
+    ``whisper`` (the ``slm_encoder``'s WhisperConfig, default Whisper-base).
+    Batches whose clip would be under 40 aligner frames are skipped (the
+    style encoder needs 80 mel frames).
     """
     dev = _device(device)
     nets.to(dev)

@@ -1,45 +1,71 @@
-"""Stage-1 training before TMA: mel reconstruction (ref: train_first.py:104-576;
-the JAX package's ``train/stage1.py``, ``tma=False``).
+"""Stage-1 training: mel reconstruction, then from ``TMA_epoch`` on the joint
+aligner training with the adversarial and SLM losses (ref:
+train_first.py:104-576; the JAX package's ``train/stage1.py``).
 
-One step: the log-mel of the batch's waveforms on the device, cut to an even
-length; the frozen aligner (with its dropout) and the monotonic path (kernel
-K3) under ``no_grad``; the text encoder; the soft or the monotonic alignment,
-one draw for the whole batch; a random clip per sample; the frozen pitch
+The forward of one step: the log-mel of the batch's waveforms on the device,
+cut to an even length; the aligner (with its dropout) and the monotonic path
+(kernel K3, a constant); the text encoder; the soft or the monotonic
+alignment, one draw for the whole batch; a random clip per sample; the pitch
 extractor on the clip; the style encoder; the training decoder (its 48
 AdaIN -> Snake pairs through kernels K1f/K1b); and the multi-resolution STFT
-loss, alone (the reference leaves ``lambda_mel`` out of the pre-TMA loss).
-AdamW then updates the text encoder, style encoder and decoder.
+loss.
+
+Before TMA the aligner and the pitch extractor are frozen and run with no
+graph, the loss is the STFT loss alone (the reference leaves ``lambda_mel``
+out of it), and AdamW updates the text encoder, style encoder and decoder.
+
+With TMA the forward runs once, and then:
+1. the discriminator step: the discriminator loss of MPD and MSD on the
+   detached waveform, and AdamW on ``mpd`` and ``msd``;
+2. the generator step, against the updated discriminators: ``lambda_mel`` x
+   mel + ``lambda_mono`` x mono + ``lambda_s2s`` x s2s + ``lambda_gen`` x the
+   GAN losses + ``lambda_slm`` x the Whisper feature loss, differentiated
+   only into the generator nets (the discriminators' and the Whisper
+   encoder's parameters take no gradient), and AdamW on the text encoder,
+   style encoder, decoder, aligner and pitch extractor.
+The JAX step writes the forward twice and leaves XLA to merge them; here it
+runs once and its graph serves the generator step.
 
 Every random input of the step is an explicit tensor of ``Stage1Noise``,
 drawn in one place from a ``torch.Generator`` on the step's device, so the
-tests can feed the draws the JAX package makes.  The TMA phase (MPD/MSD, the
-GAN and SLM losses, the discriminator step) is the next slice.
+tests can feed the draws the JAX package makes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..audio.mel import DATASET_MEL, log_mel_spectrogram, log_norm
-from ..config import Config, ModelParams
+from ..config import Config, LossParams, ModelParams
+from ..losses.gan import discriminator_loss_full, generator_loss_full
+from ..losses.slm import slm_feature_loss
 from ..losses.stft_loss import multi_resolution_stft_loss
 from ..models.asr import ASRNoise, asr_apply
 from ..models.decoder.istftnet import F0_SMOOTH, N_SMOOTH, decoder_apply
+from ..models.discriminators import mpd_apply, mpd_towers, msd_apply, msd_towers
 from ..models.jdc import jdc_apply
 from ..models.style_encoder import style_encoder_apply
 from ..models.text_encoder import DROPOUT as TEXT_DROPOUT
 from ..models.text_encoder import text_encoder_apply
+from ..models.whisper import WhisperConfig
+from ..models.zoo import STAGE1_TMA_NETS
 from ..ops.monotonic import maximum_path
 from .optimizers import MultiOptimizer
 
 HOP = 300
 N_DOWN = 1          # the aligner's time downsampling (ref: Utils/ASR/models.py n_down=1)
 TRAINED = ("text_encoder", "style_encoder", "decoder")
+# from TMA on: the five generator nets, and the discriminators
+TMA_TRAINED = TRAINED + ("text_aligner", "pitch_extractor")
+DISCRIMINATORS = ("mpd", "msd")
 
 
 @dataclasses.dataclass
@@ -115,7 +141,6 @@ def clip_starts(u: torch.Tensor, half_len: torch.Tensor, mel_len: int) -> torch.
     return (u * span).to(torch.int64)
 
 
-@torch.no_grad()
 def compute_alignment(aligner: nn.Module, mels: torch.Tensor, mel_lengths: torch.Tensor,
                       texts: torch.Tensor, text_lengths: torch.Tensor,
                       noise: Optional[ASRNoise] = None
@@ -123,8 +148,8 @@ def compute_alignment(aligner: nn.Module, mels: torch.Tensor, mel_lengths: torch
     """The aligner forward and the monotonic path (ref: train_first.py:317-345):
     (ppgs, s2s_pred, s2s_attn (B, T_text, T_mel//2), s2s_attn_mono).
 
-    Under ``no_grad``: before TMA the aligner is frozen, and the path is a
-    constant on both sides (ref: utils.py:11-24)."""
+    Under the caller's grad mode: before TMA the aligner is frozen and runs
+    with no graph.  The path is a constant either way (ref: utils.py:11-24)."""
     b, _, t_mel = mels.shape
     t_text = texts.shape[1]
     dev = mels.device
@@ -141,11 +166,12 @@ def compute_alignment(aligner: nn.Module, mels: torch.Tensor, mel_lengths: torch
 
 
 def stage1_loss(nets: nn.ModuleDict, mp: ModelParams, batch: Dict[str, torch.Tensor],
-                noise: Stage1Noise, mel_len: int, mel_len_st: int
+                noise: Stage1Noise, mel_len: int, mel_len_st: int, tma: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The pre-TMA generator loss of one batch: ``(loss_mel, aux)``, with
-    gradients to the text encoder, style encoder and decoder (``aux["y_rec"]``,
-    the decoder's waveform, carries them too).
+    """The forward of one batch to the STFT loss: ``(loss_mel, aux)``, with
+    gradients to the text encoder, style encoder and decoder, and with
+    ``tma`` to the aligner and the pitch extractor too (``aux["y_rec"]``,
+    the decoder's waveform, and the aligner's outputs carry them).
 
     batch: ``waves`` (B, T_wav) f32, ``mel_input_length`` (B,), ``texts``
     (B, T_text) int64, ``input_lengths`` (B,); ``mel_len`` the clip length
@@ -156,8 +182,11 @@ def stage1_loss(nets: nn.ModuleDict, mp: ModelParams, batch: Dict[str, torch.Ten
     mel_lengths = batch["mel_input_length"]
     texts, text_lengths = batch["texts"], batch["input_lengths"]
 
-    _, s2s_pred, s2s_attn, s2s_attn_mono = compute_alignment(
-        nets["text_aligner"], mels, mel_lengths, texts, text_lengths, noise.asr)
+    # before TMA the aligner and the pitch extractor are frozen: no graph
+    train_aux = tma and torch.is_grad_enabled()
+    with torch.set_grad_enabled(train_aux):
+        _, s2s_pred, s2s_attn, s2s_attn_mono = compute_alignment(
+            nets["text_aligner"], mels, mel_lengths, texts, text_lengths, noise.asr)
     t_en = text_encoder_apply(nets["text_encoder"], texts, text_lengths, noise.text_keep)
     attn = torch.where(noise.use_mono, s2s_attn_mono, s2s_attn)
     asr_feats = t_en @ attn                                    # (B, C, T_mel//2)
@@ -170,8 +199,8 @@ def stage1_loss(nets: nn.ModuleDict, mp: ModelParams, batch: Dict[str, torch.Ten
     st_starts = clip_starts(noise.style_clip_u, half_len, mel_len_st)
     st = clip_batch(mels, st_starts * 2, mel_len_st * 2)
 
-    with torch.no_grad():
-        real_norm = log_norm(gt)
+    real_norm = log_norm(gt)
+    with torch.set_grad_enabled(train_aux):
         f0_real, _, _ = jdc_apply(nets["pitch_extractor"], gt[:, None])
     s = style_encoder_apply(nets["style_encoder"], (st if mp.multispeaker else gt)[:, None])
     y_rec = decoder_apply(nets["decoder"], en, f0_real, real_norm, s,
@@ -180,39 +209,150 @@ def stage1_loss(nets: nn.ModuleDict, mp: ModelParams, batch: Dict[str, torch.Ten
     loss_mel = multi_resolution_stft_loss(y_rec[:, 0, :].float(), wav.float())
     return loss_mel, {"mel_loss": loss_mel.detach(), "y_rec": y_rec, "wav": wav,
                       "s2s_pred": s2s_pred, "s2s_attn": s2s_attn,
-                      "s2s_attn_mono": s2s_attn_mono}
+                      "s2s_attn_mono": s2s_attn_mono, "texts": texts,
+                      "text_lengths": text_lengths}
+
+
+def s2s_loss(s2s_pred: torch.Tensor, texts: torch.Tensor, text_lengths: torch.Tensor
+             ) -> torch.Tensor:
+    """The aligner's masked per-token cross-entropy (ref:
+    train_first.py:407-411) over ``s2s_pred[:, :-1]`` in f32: each sample's
+    mean over its length, then the batch mean."""
+    logits = s2s_pred[:, :-1, :].float()
+    tmask = (torch.arange(logits.shape[1], device=logits.device)[None, :]
+             < text_lengths[:, None]).float()
+    nll = -torch.gather(F.log_softmax(logits, dim=-1), -1, texts[..., None])[..., 0]
+    return torch.mean((nll * tmask).sum(1) / torch.clamp(tmask.sum(1), min=1.0))
+
+
+def mono_loss(s2s_attn: torch.Tensor, s2s_attn_mono: torch.Tensor) -> torch.Tensor:
+    """``10 * mean|s2s_attn - mono|`` over the whole padded tensor."""
+    return torch.mean(torch.abs(s2s_attn - s2s_attn_mono)) * 10.0
+
+
+def discriminator_step_loss(mpd: nn.Module, msd: nn.Module, wav: torch.Tensor,
+                            y_rec: torch.Tensor) -> torch.Tensor:
+    """The discriminators' loss on the real wav (B, T) and the generated
+    y_rec (B, 1, T), both constants: one 2B pass through each tower."""
+    y, y_hat = wav[:, None, :].detach(), y_rec.detach()
+    return discriminator_loss_full(mpd_apply(mpd, y, y_hat), msd_apply(msd, y, y_hat))
+
+
+def generator_adversarial_loss(mpd: nn.Module, msd: nn.Module, wav: torch.Tensor,
+                               y_rec: torch.Tensor, remat: bool = True) -> torch.Tensor:
+    """``generator_loss_full`` of MPD and MSD, with gradients to y_rec only.
+
+    The real branch is a constant and runs with no graph.  With ``remat``
+    the fake branch and the loss run under ``torch.utils.checkpoint``: the
+    towers' activations, the largest temporaries of the step, are
+    recomputed in the backward instead of held."""
+    y = wav[:, None, :].detach()
+    with torch.no_grad():
+        (mpd_rs, mpd_rf), (msd_rs, msd_rf) = mpd_towers(mpd, y), msd_towers(msd, y)
+
+    def loss(y_hat):
+        mpd_gs, mpd_gf = mpd_towers(mpd, y_hat)
+        msd_gs, msd_gf = msd_towers(msd, y_hat)
+        return generator_loss_full((mpd_rs, mpd_gs, mpd_rf, mpd_gf),
+                                   (msd_rs, msd_gs, msd_rf, msd_gf))
+
+    return checkpoint(loss, y_rec, use_reentrant=False) if remat else loss(y_rec)
+
+
+def tma_generator_loss(nets: nn.ModuleDict, lp: LossParams, loss_mel: torch.Tensor,
+                       aux: Dict[str, torch.Tensor], hop_length: int = 300,
+                       remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The TMA phase's generator loss from the forward's ``loss_mel`` and
+    ``aux`` (ref: train_first.py:395-430): ``(g_loss, metrics)``."""
+    wav, y_rec = aux["wav"], aux["y_rec"]
+    loss_s2s = s2s_loss(aux["s2s_pred"], aux["texts"], aux["text_lengths"])
+    loss_mono = mono_loss(aux["s2s_attn"], aux["s2s_attn_mono"])
+    loss_gen = generator_adversarial_loss(nets["mpd"], nets["msd"], wav, y_rec, remat)
+    loss_slm = slm_feature_loss(nets["slm_encoder"], wav, y_rec[:, 0, :], hop_length)
+    g_loss = (lp.lambda_mel * loss_mel + lp.lambda_mono * loss_mono
+              + lp.lambda_s2s * loss_s2s + lp.lambda_gen * loss_gen + lp.lambda_slm * loss_slm)
+    return g_loss, {"gen_loss": loss_gen.detach(), "mono_loss": loss_mono.detach(),
+                    "s2s_loss": loss_s2s.detach(), "slm_loss": loss_slm.detach()}
+
+
+@contextlib.contextmanager
+def frozen(modules: Iterable[nn.Module]):
+    """Parameters of ``modules`` take no gradient inside the block."""
+    params = [p for m in modules for p in m.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
 
 
 @dataclasses.dataclass
 class Stage1Trainer:
     config: Config
-    configs: Dict                   # {"model": ModelParams}
+    configs: Dict                   # {"model": ModelParams, "whisper": WhisperConfig}
     nets: nn.ModuleDict
     optimizer: MultiOptimizer
+    remat_discriminators: bool = True  # recompute the generator side's MPD/MSD
+                                       # activations in the backward
 
     def make_step(self, tma: bool, mel_len: int, mel_len_st: int):
         """The step of a (phase, clip length) bucket:
         ``step(batch, noise=None, generator=None) -> metrics``."""
         if tma:
-            raise NotImplementedError(
-                "the stage-1 TMA phase (MPD/MSD, GAN and SLM losses, the discriminator "
-                "step) is the next slice of the port")
+            missing = [n for n in STAGE1_TMA_NETS if n not in self.nets]
+            if missing:
+                raise ValueError(f"the TMA phase needs the nets {missing} "
+                                 "(models.zoo.STAGE1_TMA_NETS)")
+            whisper = self.configs.get("whisper", WhisperConfig())
+            if self.nets["slm_encoder"].cfg != whisper:
+                raise ValueError(f"slm_encoder is built for {self.nets["slm_encoder"].cfg}, "
+                                 f"configs['whisper'] is {whisper}")
 
         def step(batch, noise: Optional[Stage1Noise] = None,
                  generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-            return self.step(batch, mel_len, mel_len_st, noise, generator)
+            return self.step(batch, mel_len, mel_len_st, noise, generator, tma)
         return step
 
     def step(self, batch: Dict[str, torch.Tensor], mel_len: int, mel_len_st: int,
              noise: Optional[Stage1Noise] = None,
-             generator: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        """One pre-TMA step; ``noise`` drawn from ``generator`` when None.
-        Returns detached metrics (``mel_loss``, ``g_loss``) on the device."""
+             generator: Optional[torch.Generator] = None,
+             tma: bool = False) -> Dict[str, torch.Tensor]:
+        """One step; ``noise`` drawn from ``generator`` when None.  Returns
+        detached metrics on the device: ``mel_loss`` and ``g_loss``, and
+        with ``tma`` also ``gen_loss``, ``mono_loss``, ``s2s_loss``,
+        ``slm_loss`` and ``d_loss``."""
         mp: ModelParams = self.configs["model"]
         if noise is None:
             noise = Stage1Noise.draw(generator, self.nets, batch, mel_len)
+        if tma:
+            loss_mel, aux = stage1_loss(self.nets, mp, batch, noise, mel_len, mel_len_st,
+                                        tma=True)
+            return self.tma_update(loss_mel, aux)
         self.optimizer.zero_grad(TRAINED)
         loss, aux = stage1_loss(self.nets, mp, batch, noise, mel_len, mel_len_st)
         loss.backward()
         self.optimizer.step(TRAINED)
         return {"mel_loss": aux["mel_loss"], "g_loss": loss.detach()}
+
+    def tma_update(self, loss_mel: torch.Tensor, aux: Dict[str, torch.Tensor]
+                   ) -> Dict[str, torch.Tensor]:
+        """The TMA phase's two updates after the forward: the discriminator
+        step, then the generator step against the updated discriminators
+        (ref: train_first.py:391-430)."""
+        nets = self.nets
+        self.optimizer.zero_grad(DISCRIMINATORS)
+        d_loss = discriminator_step_loss(nets["mpd"], nets["msd"], aux["wav"], aux["y_rec"])
+        d_loss.backward()
+        self.optimizer.step(DISCRIMINATORS)
+
+        self.optimizer.zero_grad(TMA_TRAINED)
+        with frozen(nets[n] for n in DISCRIMINATORS + ("slm_encoder",)):
+            g_loss, metrics = tma_generator_loss(
+                nets, self.config.loss_params, loss_mel, aux,
+                self.configs["model"].slm.hop_length, self.remat_discriminators)
+            g_loss.backward()
+        self.optimizer.step(TMA_TRAINED)
+        return {"mel_loss": aux["mel_loss"], **metrics, "g_loss": g_loss.detach(),
+                "d_loss": d_loss.detach()}

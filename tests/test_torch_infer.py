@@ -103,6 +103,30 @@ def test_load_jax_params_round_trip():
         assert ka == kb and torch.equal(a, b)
 
 
+def test_engine_leaves_the_callers_position_table():
+    """The engine grows its own copy of PL-BERT's position table: the
+    caller's nets keep theirs (64 rows here), their weights still load
+    strictly into a fresh zoo, and the engine synthesises past row 64."""
+    zoo, nets, _, _, mp, pl = tiny()
+    rows = nets["bert"].embeddings["position_embeddings"].weight.shape[0]
+    eng = InferenceEngine(nets, mp, pl, device="cpu")
+    assert nets["bert"].embeddings["position_embeddings"].weight.shape[0] == rows == 64
+    assert tuple(eng.bert_positions.shape) == (1024, pl.embedding_size)
+    torch.testing.assert_close(eng.bert_positions[:rows],
+                               nets["bert"].embeddings["position_embeddings"].weight)
+    assert torch.equal(eng.bert_positions[rows:],
+                       eng.bert_positions[rows - 1].expand(1024 - rows, -1))
+    fresh = load_jax_params(build_nets(mp, pl, decoder_width=64, decoder_asr_res_ch=8),
+                            export_params(nets))
+    for (ka, a), (kb, b) in zip(fresh.state_dict().items(), nets.state_dict().items()):
+        assert ka == kb and torch.equal(a, b)
+    long_text = " ".join(PHONEMES * 3)
+    tokens, _ = eng.tokenize([long_text])
+    assert tokens.shape[1] > rows
+    wav = eng.synthesize(long_text, diffusion_steps=2, generator=torch.Generator().manual_seed(0))
+    assert wav.ndim == 1 and wav.size > 0 and np.isfinite(wav).all()
+
+
 def test_port_imports_no_jax():
     """Every module of the port imports without jax and without the JAX
     package (in a fresh interpreter: this one has imported jax already)."""
@@ -115,7 +139,9 @@ def test_port_imports_no_jax():
         "assert len(names) > 20, names\n"
         "need = {'audio.mel', 'losses.stft_loss', 'models.style_encoder', 'models.jdc',\n"
         "        'models.asr', 'ops.monotonic', 'kernels.maximum_path', 'kernels.adain_snake',\n"
-        "        'train.optimizers', 'train.stage1', 'train.loop'}\n"
+        "        'train.optimizers', 'train.stage1', 'train.loop', 'nn.conv',\n"
+        "        'audio.resample', 'models.whisper', 'models.discriminators', 'losses.gan',\n"
+        "        'losses.slm'}\n"
         "missing = {n for n in need if pkg.__name__ + '.' + n not in names}\n"
         "assert not missing, missing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"

@@ -261,7 +261,7 @@ def test_multi_optimizer_matches_optax():
 def test_run_stage1_two_steps_on_cpu():
     """Two steps through the driver: finite losses, the trained nets move,
     the frozen ones do not; a batch too short for the style encoder is
-    skipped; the TMA phase is refused."""
+    skipped; the TMA phase asks for the nets it adds (``STAGE1_TMA_NETS``)."""
     _, nets, _, mp, asr_cfg, jdc_cfg = stage1_tiny()
     nets = copy.deepcopy(nets)
     before = {k: copy.deepcopy(v.state_dict()) for k, v in nets.items()}
@@ -284,5 +284,5 @@ def test_run_stage1_two_steps_on_cpu():
                     for k, v in nets[name].state_dict().items())
         assert moved == (name in TRAINED), name
     trainer = Stage1Trainer(cfg, {"model": mp}, nets, state.optimizer)
-    with pytest.raises(NotImplementedError, match="TMA"):
+    with pytest.raises(ValueError, match="STAGE1_TMA_NETS"):
         trainer.make_step(True, 40, 40)
