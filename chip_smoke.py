@@ -34,7 +34,18 @@ Phases, each of which exits non-zero when it fails:
    including ``d_loss``, K1f/K1b/K3 48/48/1 launches a step, the seven
    trained nets moved and the Whisper encoder not, the step median and the
    peak memory of the phase;
-6. print the kernels line, the card's name and power limit, and, last,
+6. train files: the stage-1 trainer as users run it
+   (``python -m styletts2_tpu_torch.train_stage1``, called in this
+   process) on a seeded LJSpeech-shaped corpus of WAVs at 22050 Hz written
+   to a temporary directory, at full width: one epoch before TMA and one
+   with it, validation after each, a checkpoint each, then a second run
+   resumed from the first epoch's checkpoint; finite train and validation
+   losses, K1f/K1b/K3 48/48/1 launches a step (48/0/1 a validation batch),
+   the files written, the checkpoint's nets and AdamW states loaded
+   exactly, the resumed step's losses those of the uninterrupted run; the
+   loader's wait per batch, the checkpoint's bytes and its
+   save and load times, and the validation time per batch;
+7. print the kernels line, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds a
@@ -49,6 +60,7 @@ import gc
 import json
 import logging
 import math
+import os
 import re
 import shutil
 import statistics
@@ -64,6 +76,7 @@ TF32_FLOP_PER_S = 495e12         # H100 SXM, dense TF32 on the tensor cores
 SLEEP_CYCLES = 2_000_000         # ~1 ms of device clock ahead of a device-only timing
 SEED = 0
 STEPS = 5
+RANDOM_ENCODERS = "STYLETTS2_ALLOW_RANDOM_ENCODERS"
 PHONEMES = [                     # LJSpeech-style IPA, four lengths
     "ðɪ ɛkstɹə pɹɛʃɚ wʌz sʌdn̩.",
     "ɪn ðə jɪɹ eɪtiːn θɜːɾi tuː, ðə pɹɛs wʌz moʊst ɪmpɔːɹtənt.",
@@ -466,7 +479,7 @@ def phase_train(torch, KA, KM, K2, profile=False, dev="cuda", mp=None, asr_cfg=N
     from styletts2_tpu_torch.models.whisper import WhisperConfig
     from styletts2_tpu_torch.models.zoo import (STAGE1_NETS, STAGE1_TMA_NETS, build_nets,
                                                 init_random_)
-    from styletts2_tpu_torch.train.loop import run_stage1
+    from styletts2_tpu_torch.train.loop import run_stage1, to_device
     from styletts2_tpu_torch.train.stage1 import DISCRIMINATORS, TMA_TRAINED, TRAINED
 
     dev = torch.device(dev)
@@ -552,13 +565,268 @@ def phase_train(torch, KA, KM, K2, profile=False, dev="cuda", mp=None, asr_cfg=N
         from styletts2_tpu_torch.train.stage1 import Stage1Trainer
 
         trainer = Stage1Trainer(cfg, configs, nets, state.optimizer)
-        tb = {"waves": torch.from_numpy(batches[0]["waves"]).to(dev)}
-        for k in ("mel_input_length", "texts", "input_lengths"):
-            tb[k] = torch.from_numpy(batches[0][k]).long().to(dev)
+        tb = to_device(batches[0], dev)
         gen = torch.Generator(dev).manual_seed(SEED)
         out["profile"] = profile_request(
             torch, lambda: float(trainer.step(tb, 96, 96, generator=gen, tma=tma)["g_loss"]),
             mark=("adain_snake_fwd", "adain_snake_bwd", "maximum_path_kernel"))
+    return out
+
+
+def _write_corpus(root: Path, n: int, prefix: str, rng, n_short: int, sr: int = 22050):
+    """``n`` seeded 16-bit PCM WAVs at ``sr`` Hz under ``root``, half of them
+    ``n_short`` samples long and the rest up to 40% longer, and their list
+    of LJSpeech-style phoneme strings (``wav|phonemes|speaker``)."""
+    import numpy as np
+    import scipy.io.wavfile as sw
+
+    lines = []
+    for i in range(n):
+        length = n_short if i % 2 == 0 else n_short + int(rng.integers(1, int(0.4 * n_short)))
+        pcm = (0.1 * rng.standard_normal(length) * 32767).astype(np.int16)
+        sw.write(root / f"{prefix}{i:03d}.wav", sr, pcm)
+        lines.append(f"{prefix}{i:03d}.wav|{PHONEMES[i % len(PHONEMES)]}|0\n")
+    path = root / f"{prefix}_list.txt"
+    path.write_text("".join(lines))
+    return str(path)
+
+
+def _arrays_equal_file(torch, npz, nets, optimizer) -> int:
+    """Every tensor of ``nets`` and every AdamW state of ``optimizer``
+    against the arrays of checkpoint ``npz`` (exact); returns the count."""
+    import numpy as np
+
+    compared = 0
+    with np.load(npz) as data:
+        names = set(data.files)
+        for name, net in nets.items():
+            for k, v in net.state_dict().items():
+                check(np.array_equal(v.detach().cpu().numpy(), data[f"net.{name}.{k}"]),
+                      f"resumed {name}.{k} differs from {npz}")
+                compared += 1
+            opt = optimizer.opts[name]
+            for pname, p in net.named_parameters():
+                state = opt.state.get(p, {})
+                keys = sorted(k for k in names if k.startswith(f"adamw.{name}.{pname}."))
+                check(len(keys) == len(state), f"AdamW state of {name}.{pname}: "
+                      f"{sorted(state)} against {keys}")
+                for key, value in state.items():
+                    check(np.array_equal(value.detach().cpu().numpy(),
+                                         data[f"adamw.{name}.{pname}.{key}"]),
+                          f"resumed AdamW {key} of {name}.{pname} differs from {npz}")
+                    compared += 1
+    return compared
+
+
+def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
+                      clips=(32, 16), n_short=45400):
+    """The stage-1 trainer as users run it, from files on disk: a seeded
+    LJSpeech-shaped corpus (``clips`` train and validation WAVs at 22050 Hz,
+    half of them ``n_short`` samples, so every batch's shortest clip gives
+    198 mel frames and a clip of 96 aligner frames), then
+    ``styletts2_tpu_torch.train_stage1.main`` in this process on
+    ``configs/ljspeech.yml`` at full width (batch 16, ``epochs_1st`` 2,
+    ``TMA_epoch`` 1, ``save_freq`` 1, random frozen encoders: their files
+    are not in the repository), then a second run resumed from
+    ``epoch_1st_00000.npz``.  Checks finite train and validation losses,
+    K1f/K1b/K3 48/48/1 launches a step, the files written, that a load of
+    the epoch-0 checkpoint gives its nets and AdamW states exactly, and that
+    the resumed run's first step has the straight run's third step's losses
+    before their updates; times
+    the loader's wait per batch against the steps, a checkpoint's save and
+    load, and the validation step.  ``dev`` and ``overrides`` (merged into
+    the YAML) size a rehearsal on the CPU."""
+    import tempfile
+
+    import numpy as np
+    import yaml
+    from styletts2_tpu_torch import train_stage1
+    from styletts2_tpu_torch.config import load_config
+    from styletts2_tpu_torch.data import build_dataloader
+    from styletts2_tpu_torch.models.zoo import STAGE1_TMA_NETS, build_nets
+    from styletts2_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from styletts2_tpu_torch.train.loop import (VAL_STREAM, _bucket, _clip_lengths,
+                                                make_lr_map, seeded_generator, to_device)
+    from styletts2_tpu_torch.train.optimizers import MultiOptimizer
+    from styletts2_tpu_torch.train.validate import make_stage1_val_step
+
+    on_card = dev is None or torch.device(dev).type == "cuda"
+    names = ("adain_snake_fwd", "adain_snake_bwd", "maximum_path", "mrf_round")
+    zero = dict.fromkeys(names, 0)
+    want_step = {**zero, "adain_snake_fwd": 48, "adain_snake_bwd": 48, "maximum_path": 1}
+    want_val = {**zero, "adain_snake_fwd": 48, "maximum_path": 1}
+
+    def counts():
+        return dict(zip(names, (KA.fwd_launches, KA.bwd_launches, KM.launches, K2.launches)))
+
+    def reset():
+        KA.fwd_launches = KA.bwd_launches = KM.launches = K2.launches = 0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_files_"))
+    out = {"clips": list(clips), "n_short": n_short, "sr": 22050}
+    try:
+        rng = np.random.default_rng(SEED)
+        spec = yaml.safe_load((ROOT / "configs" / "ljspeech.yml").read_text())
+        spec.update({"first_stage_path": "first_stage.npz", "epochs_1st": 2, "save_freq": 1,
+                     "log_interval": 1, "batch_size": 16})
+        spec["loss_params"]["TMA_epoch"] = 1
+        spec["data_params"].update({
+            "train_data": _write_corpus(tmp, clips[0], "train", rng, n_short),
+            "val_data": _write_corpus(tmp, clips[1], "val", rng, n_short),
+            "root_path": str(tmp), "OOD_data": ""})
+        for key, value in (overrides or {}).items():
+            spec[key] = {**spec[key], **value} if isinstance(value, dict) else value
+        yml = tmp / "ljspeech_files.yml"
+        args = ["--config_path", str(yml)] + (["--device", dev] if dev else [])
+        os.environ[RANDOM_ENCODERS] = "1"
+        print(f"train files: the frozen encoders (ASR, JDC, Whisper) keep random weights "
+              f"({RANDOM_ENCODERS}=1): their files are not in the repository", flush=True)
+
+        def run(extra, log_dir):
+            """One ``train_stage1.main`` call into ``log_dir``, its steps'
+            and validations' metrics and launches, and the step times."""
+            spec["log_dir"] = str(log_dir)
+            yml.write_text(yaml.safe_dump(spec, allow_unicode=True))
+            recs = []
+
+            def log_cb(it, metrics):
+                recs.append({"iter": it, "metrics": metrics, "launches": counts(),
+                             "t": time.perf_counter(), "val": "val_mel_loss" in metrics})
+                reset()
+            if on_card:
+                sync()
+                torch.cuda.reset_peak_memory_stats()
+            reset()
+            t0 = time.perf_counter()
+            state = train_stage1.main(args + extra, log_cb=log_cb)
+            wall = time.perf_counter() - t0
+            for rec in recs:
+                check(all(np.isfinite(v) for v in rec["metrics"].values()),
+                      f"train-files losses at iter {rec['iter']}: {rec['metrics']}")
+                want = (want_val if rec["val"] else want_step) if on_card else zero
+                check(rec["launches"] == want,
+                      f"train-files launches at iter {rec['iter']}: {rec['launches']}")
+            # a step's time: from the step before it, in the same epoch, to its metrics
+            step_ms = {("tma" if "d_loss" in b["metrics"] else "pre_tma"): 1e3 * (b["t"] - a["t"])
+                       for a, b in zip(recs, recs[1:]) if not (a["val"] or b["val"])}
+            return state, {"wall_s": wall, "log": [{k: r[k] for k in ("iter", "metrics",
+                                                                     "launches")}
+                                                   for r in recs],
+                           "steps": sum(not r["val"] for r in recs),
+                           "validations": sum(r["val"] for r in recs), "step_ms": step_ms,
+                           "data_wait_ms": [1e3 * w for w in state.data_wait_s],
+                           "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else 0}
+
+        train_list = Path(spec["data_params"]["train_data"]).read_text().splitlines()
+        loader = build_dataloader(train_list, str(tmp), batch_size=spec["batch_size"])
+        out["mel_len"] = [_bucket(_clip_lengths(b["mel_input_length"], spec["max_len"]))
+                          for epoch in (0, 1) for b in loader(epoch)]
+        if overrides is None:
+            check(out["mel_len"] == [96] * 4, f"the corpus's clips are {out['mel_len']}")
+
+        logs = tmp / "logs"
+        state, first = run([], logs)
+        cfg = train_stage1.grow_n_token(load_config(str(yml)))
+        check((state.epoch, state.iters, first["steps"], first["validations"]) == (2, 4, 4, 2),
+              f"train-files run: epoch {state.epoch}, iters {state.iters}, {first['steps']} "
+              f"steps, {first['validations']} validations")
+        for name in ("epoch_1st_00000.npz", "epoch_1st_00001.npz", "first_stage.npz",
+                     "metrics.jsonl"):
+            check((logs / name).is_file(), f"train-files: {name} not written")
+        check(len((logs / "metrics.jsonl").read_text().splitlines()) == 6,
+              "train-files: metrics.jsonl does not hold 4 steps and 2 validations")
+        (logs / "epoch_1st_00001.npz").unlink()       # the state first_stage.npz holds too
+        out["ckpt_bytes"] = {"epoch_1st_00000 (before TMA)":
+                             (logs / "epoch_1st_00000.npz").stat().st_size,
+                             "first_stage (from TMA on)": (logs / "first_stage.npz").stat().st_size}
+
+        # a checkpoint's save and load, timed on the trained TMA state
+        timed = tmp / "timed.npz"
+        sync()
+        t0 = time.perf_counter()
+        save_checkpoint(str(timed), state.nets, state.optimizer, state.epoch, state.iters)
+        out["save_s"] = time.perf_counter() - t0
+        out["save_bytes"] = timed.stat().st_size
+        t0 = time.perf_counter()
+        load_checkpoint(str(timed), state.nets, state.optimizer)
+        sync()
+        out["load_s"] = time.perf_counter() - t0
+        timed.unlink()
+
+        # the validation step on the trained nets, per batch
+        val_list = Path(spec["data_params"]["val_data"]).read_text().splitlines()
+        val_loader = build_dataloader(val_list, str(tmp), validation=True,
+                                      batch_size=spec["batch_size"])
+        device = next(state.nets.parameters()).device
+        gen = seeded_generator(SEED, 0, device, VAL_STREAM)
+        out["val_ms"], out["val_loss"] = [], []
+        for batch in [b for _ in range(3) for b in val_loader(0)]:
+            tb = to_device(batch, device)
+            step = make_stage1_val_step(cfg, {}, _bucket(_clip_lengths(
+                batch["mel_input_length"], spec["max_len"])))
+            u = torch.rand((tb["texts"].shape[0],), generator=gen, device=device)
+            sync()
+            reset()
+            t0 = time.perf_counter()
+            out["val_loss"].append(float(step(state.nets, tb, u)["mel_loss"]))
+            out["val_ms"].append(1e3 * (time.perf_counter() - t0))
+            check(counts() == (want_val if on_card else zero), f"validation launches: {counts()}")
+        final = {f"{n}.{k}": v.detach().cpu().numpy().copy()
+                 for n, net in state.nets.items() for k, v in net.state_dict().items()}
+        del state, step
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # a load of the epoch-0 checkpoint gives its nets and AdamW states exactly
+        nets = build_nets(cfg.model_params, nets=STAGE1_TMA_NETS).to(device)
+        opt = MultiOptimizer(nets, make_lr_map(cfg), default_lr=cfg.optimizer_params.lr)
+        _, epoch0, iters0, _ = load_checkpoint(str(logs / "epoch_1st_00000.npz"), nets, opt)
+        check((epoch0, iters0) == (1, 2), f"epoch_1st_00000 holds epoch {epoch0}, iters {iters0}")
+        out["resume_tensors_equal"] = _arrays_equal_file(torch, logs / "epoch_1st_00000.npz",
+                                                         nets, opt)
+        del nets, opt
+        gc.collect()
+
+        state, resumed = run(["--resume", str(logs / "epoch_1st_00000.npz")], tmp / "resumed")
+        check((state.epoch, state.iters, resumed["steps"], resumed["validations"]) == (2, 4, 2, 1),
+              f"resumed run: epoch {state.epoch}, iters {state.iters}, {resumed['steps']} steps")
+        # the resumed run's first step sees the nets, states and noise of the
+        # straight run's third: its losses before any update agree
+        straight3 = [r for r in first["log"] if "val_mel_loss" not in r["metrics"]][2]
+        resumed1 = resumed["log"][0]
+        for key in ("mel_loss", "mono_loss", "s2s_loss", "slm_loss", "d_loss"):
+            a, b = straight3["metrics"][key], resumed1["metrics"][key]
+            check(abs(a - b) <= 1e-6 * abs(a), f"resumed step 3 {key} {b} against {a}")
+        out["resumed_vs_straight_max_abs_diff"] = max(
+            float(np.abs(v.detach().cpu().numpy() - final[f"{n}.{k}"]).max())
+            for n, net in state.nets.items() for k, v in net.state_dict().items())
+        del state
+        out.update(first=first, resumed=resumed)
+    finally:
+        os.environ.pop(RANDOM_ENCODERS, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    waits = out["first"]["data_wait_ms"] + out["resumed"]["data_wait_ms"]
+    steps = [out[r]["step_ms"] for r in ("first", "resumed")]
+    peak = max(out[r]["peak_mem_bytes"] for r in ("first", "resumed"))
+    print(f"train files: losses {[r['metrics'] for r in out['first']['log']]}, resumed "
+          f"{[r['metrics'] for r in out['resumed']['log']]}", flush=True)
+    print(f"train files: loader wait per batch {['%.3f' % w for w in waits]} ms (median "
+          f"{statistics.median(waits):.3f}) against steps {steps} ms; checkpoint "
+          f"{out['ckpt_bytes']} bytes, save {out['save_s']:.3f} s and load "
+          f"{out['load_s']:.3f} s of {out['save_bytes']} bytes; validation "
+          f"{['%.3f' % v for v in out['val_ms']]} ms per batch of {spec['batch_size']}; "
+          f"peak memory "
+          f"{peak / 2**30:.2f} GiB; resumed nets and AdamW states equal the file "
+          f"({out['resume_tensors_equal']} tensors); resumed against straight max |diff| "
+          f"{out['resumed_vs_straight_max_abs_diff']:.3e}; {card}", flush=True)
     return out
 
 
@@ -607,6 +875,12 @@ def main() -> None:
     gc.collect()                          # the pre-TMA nets and optimizer go first
     torch.cuda.empty_cache()
     train_tma = phase_train(torch, KA, KM, K, profile=profile, tma=True, card=card)
+    gc.collect()                          # the TMA nets go before the trainer from files
+    torch.cuda.empty_cache()
+    train_files = phase_train_files(torch, KA, KM, K, card=card)
+    files_launches = {name: sum(r["launches"][name] for r in train_files["first"]["log"])
+                      for name in ("adain_snake_fwd", "adain_snake_bwd", "maximum_path",
+                                   "mrf_round")}
 
     timed = {r["stage"]: r for r in kernel_rows if "ms" in r}
     s1 = timed["stage1"]
@@ -614,6 +888,7 @@ def main() -> None:
         "name": "mrf_round", "route": "cuda", "source": "styletts2_tpu_torch/csrc/mrf_round.cu",
         "replaces": "styletts2_tpu/ops/pallas/mrf_round_kernel.py:183",
         "launches": serve["runs"]["batched"]["launches"],
+        "launches_train_files": files_launches["mrf_round"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows if "max_abs_err" in r),
         "ms": s1["ms"], "device_ms": s1["device_ms"], "plain_ms": s1["plain_ms"], "bound_ms": s1["bound_ms"],
         "bound_by": s1["bound_by"], "library_ms": s1["library_ms"], "shape": s1["shape"],
@@ -630,6 +905,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
             "replaces": replaces, "launches": train["launches"][name],
             "launches_tma": train_tma["launches"][name],
+            "launches_train_files": files_launches[name],
             "max_abs_err": max(r[f"{direction}_max_abs_err"] for r in k1_err),
             "ms": k1[f"{direction}_ms"], "device_ms": k1[f"{direction}_device_ms"],
             "plain_ms": k1[f"{direction}_plain_ms"],
@@ -641,6 +917,7 @@ def main() -> None:
         "replaces": "styletts2_tpu/ops/pallas/monotonic_kernel.py:80",
         "launches": train["launches"]["maximum_path"],
         "launches_tma": train_tma["launches"]["maximum_path"],
+        "launches_train_files": files_launches["maximum_path"],
         "max_abs_err": max(r["max_abs_err"] for r in train_kernel_rows if "case" in r),
         "ms": k3["ms"], "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None, "shape": k3["shape"]})
@@ -650,7 +927,7 @@ def main() -> None:
         {"card": card, "build_s": build_s, "nvcc_logs": logs, "mrf_round_sass_mma": sass,
          "kernel_checks": kernel_rows,
          "train_kernel_checks": train_kernel_rows, "serve": serve, "train": train,
-         "train_tma": train_tma,
+         "train_tma": train_tma, "train_files": train_files,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,8 +1,8 @@
 """The nets of the LJSpeech zoo (ref: models.py:1002-1110): the inference
 nets, stage 1's aligner, pitch extractor and style encoder, and its TMA
-phase's discriminators and Whisper encoder; a seeded
-random initialisation; and the bridge from the JAX package's parameter
-trees.
+phase's discriminators and Whisper encoder; the reference's initialisation
+(``init_reference_``) and the bench's seeded random one (``init_random_``);
+and the bridge from the JAX package's parameter trees.
 
 The JAX package keys its parameter trees by the reference torch
 ``state_dict`` names, so each net here has ``state_dict`` keys equal to the
@@ -12,19 +12,23 @@ dot-joined keys of the matching JAX subtree, and loading one is
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional, Sequence
+import math
+import re
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..config import ModelParams
+from ..nn import init as tinit
 from .asr import ASRCNN, ASRConfig
-from .common import SNConv2d
+from .common import ChannelLayerNorm, SNConv2d
 from .decoder.istftnet import Decoder
 from .diffusion.denoiser import Denoiser
 from .discriminators import MPD_CHANNELS, MultiPeriodDiscriminator, MultiResSpecDiscriminator
-from .jdc import JDC, JDCConfig
+from .diffusion.denoiser import _LearnedPositional
+from .jdc import JDC, BatchNormStats, JDCConfig
 from .plbert import PLBert, PLBertConfig
 from .predictor import ProsodyPredictor
 from .style_encoder import StyleEncoder
@@ -41,19 +45,23 @@ STAGE1_TMA_NETS = STAGE1_NETS + ("mpd", "msd", "slm_encoder")
 
 
 def build_nets(mp: ModelParams, plbert_cfg: PLBertConfig = PLBertConfig(),
-               decoder_width: int = 1024, decoder_asr_res_ch: int = 64,
+               decoder_width: Optional[int] = None, decoder_asr_res_ch: int = 64,
                nets: Sequence[str] = INFERENCE_NETS, asr_cfg: Optional[ASRConfig] = None,
                jdc_cfg: JDCConfig = JDCConfig(),
                whisper_cfg: WhisperConfig = WhisperConfig(),
                mpd_channels: Sequence[int] = MPD_CHANNELS, msd_width: int = 32
                ) -> nn.ModuleDict:
-    """The named nets of the single-speaker zoo with zero-filled parameters
-    (fill them with ``init_random_`` or ``load_jax_params``).  ``asr_cfg``
-    defaults to ``ASRConfig(n_token=mp.n_token)``; ``whisper_cfg`` sizes
-    the ``slm_encoder`` (Whisper-base by default)."""
+    """The named nets of the single-speaker zoo with placeholder parameters
+    (fill them with ``init_reference_``, ``init_random_`` or
+    ``load_jax_params``).  ``decoder_width`` defaults to twice the
+    generator's ``upsample_initial_channel``: the reference's 1024 over 512
+    (Modules/istftnet.py).  ``asr_cfg`` defaults to
+    ``ASRConfig(n_token=mp.n_token)``; ``whisper_cfg`` sizes the
+    ``slm_encoder`` (Whisper-base by default)."""
     if mp.multispeaker or mp.decoder.type != "istftnet":
         raise NotImplementedError("the port builds the single-speaker iSTFTNet zoo only")
     tr = mp.diffusion.transformer
+    decoder_width = decoder_width or 2 * mp.decoder.upsample_initial_channel
     makers = {
         "bert": lambda: PLBert(plbert_cfg),
         "bert_encoder": lambda: nn.Linear(plbert_cfg.hidden_size, mp.hidden_dim),
@@ -78,6 +86,104 @@ def build_nets(mp: ModelParams, plbert_cfg: PLBertConfig = PLBertConfig(),
     if unknown:
         raise NotImplementedError(f"the port has no net {unknown}")
     return nn.ModuleDict({name: makers[name]() for name in nets})
+
+
+# the generator convs the JAX package draws with ``jinit_hifigan``: the MRF
+# and noise resblocks' convs and ``conv_post`` (resblock.py:32-35, istftnet.py:76)
+_HIFIGAN_CONVS = re.compile(r"^generator\.((resblocks|noise_res)\.\d+\.convs[12]\.\d+"
+                            r"|conv_post)$")
+# the aligner's tanh-gain LinearNorms (asr.py:196-208)
+_TANH_GAIN = ("query_layer", "memory_layer", "location_dense")
+_PLAIN_ALIGNER_LINEARS = ("asr_s2s.project_to_n_symbols", "duration_predictor.2")
+_NORMS = (nn.LayerNorm, nn.GroupNorm, ChannelLayerNorm, BatchNormStats)
+
+
+def _kernel_init(net: str, prefix: str, module: nn.Module, root: nn.Module
+                 ) -> Callable[[torch.Tensor, torch.Generator], torch.Tensor]:
+    """How the JAX ``build_zoo`` draws the kernel of ``module`` (at
+    ``prefix`` in the net ``net``, whose module is ``root``)."""
+    if net in ("bert", "slm_encoder"):          # HF init (plbert.py:40, whisper.py:100)
+        return lambda t, g: tinit.normal_(t, g, 0.02)
+    if net == "text_aligner":
+        if prefix == "asr_s2s.embedding":       # U(+-sqrt(6 / d)), d = hidden / 2
+            bound = math.sqrt(6.0 / (root.cfg.hidden_dim // 2))
+            return lambda t, g: tinit.uniform_(t, g, bound)
+        if prefix.endswith(("linear_layer", "conv")):   # ConvNorm/LinearNorm: xavier
+            gain = 5.0 / 3.0 if any(n in prefix for n in _TANH_GAIN) else 1.0
+            return lambda t, g: tinit.xavier_uniform_(t, g, gain)
+        if not isinstance(module, nn.Embedding) and prefix not in _PLAIN_ALIGNER_LINEARS:
+            raise NotImplementedError(f"no reference init for text_aligner.{prefix}")
+    if isinstance(module, nn.Embedding):        # common.py:136
+        return tinit.normal_
+    if ((net == "pitch_extractor" and isinstance(module, nn.Conv2d))
+            or (net == "decoder" and _HIFIGAN_CONVS.match(prefix))):
+        return tinit.hifigan_conv_
+    if net == "predictor" and prefix == "duration_proj.linear_layer":
+        return tinit.xavier_uniform_
+    return tinit.kaiming_uniform_
+
+
+def _init_module_(net: str, prefix: str, module: nn.Module, root: nn.Module,
+                  generator: torch.Generator) -> None:
+    """Draw the tensors ``module`` itself holds (not its children's)."""
+    own = dict(module.named_parameters(recurse=False))
+    own.update(module.named_buffers(recurse=False))
+    if not own:
+        return
+    if isinstance(module, (nn.LSTM, nn.LSTMCell)):
+        for t in own.values():
+            tinit.uniform_sqrt_hidden_(t, generator, module.hidden_size)
+    elif isinstance(module, _NORMS):
+        for name, t in own.items():
+            t.fill_(1.0 if name in ("weight", "gamma", "running_var") else 0.0)
+    elif isinstance(module, nn.ParameterList) and re.search(r"(^|\.)alpha[12]$", prefix):
+        for t in own.values():                  # Snake alphas (resblock.py:38-39)
+            t.fill_(1.0)
+    elif isinstance(module, _LearnedPositional):
+        tinit.normal_(own["weights"], generator)
+    else:
+        kernel_name = next((n for n in ("weight", "weight_orig", "weight_v") if n in own), None)
+        extra = set(own) - {kernel_name, "bias", "weight_g", "weight_u", "weight_v"}
+        if kernel_name is None or extra:
+            raise NotImplementedError(f"no reference init for {net}.{prefix} "
+                                      f"({type(module).__name__}: {sorted(own)})")
+        kernel = own[kernel_name]
+        _kernel_init(net, prefix, module, root)(kernel, generator)
+        if kernel_name == "weight_v":           # weight norm: g = ||v|| (common.py:67-75)
+            dims = tuple(range(1, kernel.ndim))
+            own["weight_g"].copy_(torch.sqrt(torch.sum(kernel * kernel, dim=dims,
+                                                       keepdim=True)))
+        if kernel_name == "weight_orig":        # spectral norm: u ~ N(0, 1), unit
+            u = tinit.normal_(own["weight_u"], generator)
+            u.div_(torch.linalg.vector_norm(u))
+        if own.get("bias") is not None:
+            if net in ("bert", "slm_encoder"):
+                own["bias"].zero_()
+            else:
+                tinit.conv_bias_(own["bias"], generator, kernel.shape)
+
+
+@torch.no_grad()
+def init_reference_(nets: nn.ModuleDict, generator: torch.Generator) -> nn.ModuleDict:
+    """Fill every tensor of ``nets`` from the distribution the JAX package's
+    ``build_zoo`` draws it from (``styletts2_tpu/models/zoo.py:32-81``),
+    net by net: torch's defaults (kaiming-uniform kernels, fan-in uniform
+    biases, U(+-1/sqrt(H)) LSTMs, N(0, 1) embeddings, unit norms), the
+    aligner's xavier ConvNorm/LinearNorm, the generator's and pitch
+    extractor's N(0, 0.01) HiFi-GAN convs, the predictor's xavier duration
+    head, and N(0, 0.02) with zero biases in PL-BERT and Whisper.  Weight
+    norm's ``weight_g`` is ``||weight_v||`` per output channel; spectral
+    norm's vectors start from a unit normal ``weight_u`` and are converged
+    by 15 power iterations (``common.py:91-115``).  The draws come from
+    ``generator`` (a CPU generator), in module order: the distributions are
+    the JAX package's, the streams are not."""
+    for net_name, net in nets.items():
+        for prefix, module in net.named_modules():
+            _init_module_(net_name, prefix, module, net, generator)
+    for m in nets.modules():
+        if isinstance(m, SNConv2d):
+            m.converge_()
+    return nets
 
 
 @torch.no_grad()
@@ -132,9 +238,10 @@ def nest(flat: Mapping[str, Any]) -> Dict:
 
 
 @torch.no_grad()
-def load_jax_params(nets: nn.ModuleDict, zoo_np: Mapping) -> nn.ModuleDict:
+def load_jax_params(nets: Mapping[str, nn.Module], zoo_np: Mapping) -> Mapping:
     """Load the JAX package's parameter tree (nested dicts of numpy arrays,
-    keyed by net name) into ``nets``, each net with ``strict=True``."""
+    keyed by net name) into ``nets`` (a ModuleDict, or a dict of some of its
+    nets), each net with ``strict=True``."""
     for name, net in nets.items():
         state = {k: torch.from_numpy(np.array(v, dtype=np.float32))
                  for k, v in flatten(zoo_np[name]).items()}
