@@ -34,7 +34,14 @@ Phases, each of which exits non-zero when it fails:
    including ``d_loss``, K1f/K1b/K3 48/48/1 launches a step, the seven
    trained nets moved and the Whisper encoder not, the step median and the
    peak memory of the phase;
-6. train files: the stage-1 trainer as users run it
+6. train2: stage 2 through ``train.loop.run_stage2`` at full width (the
+   14 ``STAGE2_NETS``, seeded weights, the same batch with 128 reference
+   tokens): 2 steps before diffusion, 2 with diffusion and the MPD/MSD,
+   9 joint steps (6 generator-SLM, 3 WD); finite losses, ``sigma_data``
+   moved, per sub-phase the nets that move and those that stay bitwise
+   equal, K1f/K1b/K3 launches a step (``train2_launches``), the median
+   step of each sub-phase and the peak memory;
+7. train files: the stage-1 trainer as users run it
    (``python -m styletts2_tpu_torch.train_stage1``, called in this
    process) on a seeded LJSpeech-shaped corpus of WAVs at 22050 Hz written
    to a temporary directory, at full width: one epoch before TMA and one
@@ -44,8 +51,13 @@ Phases, each of which exits non-zero when it fails:
    the files written, the checkpoint's nets and AdamW states loaded
    exactly, the resumed step's losses those of the uninterrupted run; the
    loader's wait per batch, the checkpoint's bytes and its
-   save and load times, and the validation time per batch;
-7. print the kernels line, the card's name and power limit, and, last,
+   save and load times, and the validation time per batch.  Then stage 2
+   (``python -m styletts2_tpu_torch.train_stage2``) from the
+   ``first_stage.npz`` that run wrote, with a seeded out-of-distribution
+   text list: an epoch with diffusion and a joint one, validation and a
+   sample dump after each, checkpoints with ``sigma_data``, then the joint
+   epoch again resumed from the first's checkpoint;
+8. print the kernels line, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds a
@@ -573,6 +585,197 @@ def phase_train(torch, KA, KM, K2, profile=False, dev="cuda", mp=None, asr_cfg=N
     return out
 
 
+def train2_launches(nets, sub_phase: str, use_ind: bool = False) -> dict:
+    """K1f / K1b / K3 launches of a stage-2 step.  The decoder runs twice
+    before ``joint_epoch`` (``y_rec_gt_pred`` with no graph, ``y_rec``) and
+    three times from it (and the SLM pass's ``y_pred``), each pass through
+    all its AdaIN -> Snake pairs.  A backward launches K1b only for a pair
+    with an input that takes a gradient: while the decoder and the style
+    are constants (before ``joint_epoch``, and in the SLM pass with the
+    ground-truth style, ``use_ind``), the harmonic source's pairs
+    (``noise_res``, fed the detached source) have none.  The generator step
+    backs through the decoder once, a generator-SLM step twice."""
+    gen = nets["decoder"].generator
+    pairs = sum(len(r.adain1) + len(r.adain2) for r in (*gen.resblocks, *gen.noise_res))
+    source = sum(len(r.adain1) + len(r.adain2) for r in gen.noise_res)
+    fwd = 2 * pairs if sub_phase in ("pre_diffusion", "diffusion") else 3 * pairs
+    bwd = {"pre_diffusion": pairs - source, "diffusion": pairs - source, "wd": pairs,
+           "generator_slm": 2 * pairs - (source if use_ind else 0)}[sub_phase]
+    return {"adain_snake_fwd": fwd, "adain_snake_bwd": bwd, "maximum_path": 1}
+
+
+KERNELS = ("adain_snake_fwd", "adain_snake_bwd", "maximum_path", "mrf_round")
+
+
+def _sub_phase(metrics) -> str:
+    if "d_loss_slm" in metrics:
+        return "wd"
+    if "gen_loss_slm" in metrics:
+        return "generator_slm"
+    return "diffusion" if metrics["diff_loss"] != 0.0 else "pre_diffusion"
+
+
+def phase_train2(torch, KA, KM, K2, profile=False, dev="cuda", mp=None, asr_cfg=None,
+                 plbert_cfg=None, widths=(1024, 64), b=16, t_text=128, whisper_cfg=None,
+                 mpd_channels=None, msd_width=32, card=""):
+    """Stage 2 through ``train.loop.run_stage2`` at the full LJSpeech width
+    (the 14 ``STAGE2_NETS``, seeded weights, f32, TF32 off) on the train
+    phases' batch with 128 reference tokens: ``epochs_2nd`` 3,
+    ``diff_epoch`` 1, ``joint_epoch`` 2, ``slmadv_params.iter`` 3, so epoch 0
+    takes 2 steps before diffusion, epoch 1 2 with diffusion and the
+    MPD/MSD, epoch 2 9 joint steps (WD steps at i = 2, 5, 8).  Checks every
+    loss finite (``d_loss`` from epoch 1, the SLM losses and a valid
+    fraction > 0 in epoch 2), ``sigma_data`` finite and moved, per sub-phase
+    the nets that move and those that stay bitwise equal, and K1f/K1b/K3
+    launches per step (``train2_launches``); times each sub-phase's steps
+    (host clock between synced log callbacks, the first step of each
+    epoch warm), and the phase's peak memory.  The keyword arguments size a
+    rehearsal on the CPU."""
+    import numpy as np
+    from styletts2_tpu_torch.config import Config, ModelParams, SlmAdvParams
+    from styletts2_tpu_torch.models.asr import ASRConfig
+    from styletts2_tpu_torch.models.discriminators import MPD_CHANNELS
+    from styletts2_tpu_torch.models.plbert import PLBertConfig
+    from styletts2_tpu_torch.models.whisper import WhisperConfig
+    from styletts2_tpu_torch.models.zoo import STAGE2_NETS, build_nets, init_random_
+    from styletts2_tpu_torch.train.loop import host_draws, run_stage2, to_device
+    from styletts2_tpu_torch.train.stage2 import (PROSODY, Stage2Phase, Stage2Trainer,
+                                                  generator_nets)
+
+    dev = torch.device(dev)
+    mp = mp or ModelParams()
+    cfg = Config(epochs_2nd=3, log_interval=1, log_dir="", model_params=mp,
+                 loss_params=dataclasses.replace(Config().loss_params, diff_epoch=1,
+                                                 joint_epoch=2),
+                 slmadv_params=dataclasses.replace(SlmAdvParams(), iter=3))
+    configs = {"model": mp, "whisper": whisper_cfg or WhisperConfig()}
+    nets = init_random_(build_nets(mp, plbert_cfg or PLBertConfig(), decoder_width=widths[0],
+                                   decoder_asr_res_ch=widths[1], nets=STAGE2_NETS,
+                                   asr_cfg=asr_cfg or ASRConfig(n_token=mp.n_token),
+                                   whisper_cfg=configs["whisper"],
+                                   mpd_channels=mpd_channels or MPD_CHANNELS,
+                                   msd_width=msd_width), SEED)
+    with torch.no_grad():                          # as in the serve phase
+        nets["decoder"].generator.conv_post.weight_g.mul_(0.05)
+    nets.to(dev)
+    n_params = {k: sum(p.numel() for p in v.parameters()) for k, v in nets.items()}
+    moves = {"pre_diffusion": set(PROSODY),
+             "diffusion": set(generator_nets(True, False)) | {"mpd", "msd"},
+             "generator_slm": set(generator_nets(True, True)) | {"mpd", "msd"},
+             "wd": set(generator_nets(True, True)) | {"mpd", "msd", "wd"}}
+
+    # the train phases' batch (bench_train.py's, with 198 valid of 208 mel
+    # frames for a clip of 96) and 128 reference tokens, for every step
+    frames = 208
+    rng = np.random.default_rng(SEED)
+    batch = {"waves": (0.1 * rng.standard_normal((b, frames * 300))).astype(np.float32),
+             "texts": rng.integers(4, 170, (b, t_text)), "input_lengths": np.full((b,), t_text),
+             "ref_texts": rng.integers(4, 170, (b, t_text)), "ref_lengths": np.full((b,), t_text),
+             "mel_input_length": np.full((b,), 198)}
+    per_epoch = (2, 2, 9)
+    recs = []
+    snapshot = {}
+    on_card = dev.type == "cuda"
+
+    def counts():
+        return dict(zip(KERNELS, (KA.fwd_launches, KA.bwd_launches, KM.launches, K2.launches)))
+
+    def reset():
+        KA.fwd_launches = KA.bwd_launches = KM.launches = K2.launches = 0
+
+    def log_cb(it, metrics):                       # metrics are floats: the step has synced
+        t = time.perf_counter()
+        sub = _sub_phase(metrics)
+        rec = {"iter": it, "sub_phase": sub, "metrics": metrics, "launches": counts(), "t": t}
+        if snapshot:                               # this step's moved nets
+            rec["moved"] = sorted(n for n, ts in snapshot.items()
+                                  if any(not torch.equal(a, w) for a, w in
+                                         zip(ts, nets[n].state_dict().values())))
+            snapshot.clear()
+        if it in (1, 3, 5, 6):                     # before a step of each sub-phase
+            snapshot.update({n: [x.clone() for x in net.state_dict().values()]
+                             for n, net in nets.items()})
+        reset()
+        if on_card:
+            torch.cuda.synchronize()
+        rec["t_end"] = time.perf_counter()
+        recs.append(rec)
+
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset()
+    t0 = time.perf_counter()
+    state = run_stage2(cfg, configs, nets, lambda epoch: iter([batch] * per_epoch[epoch]),
+                       log_cb=log_cb, device=dev, seed=SEED)
+    check(state.iters == sum(per_epoch) and len(recs) == state.iters,
+          f"run_stage2 took {state.iters} steps")
+    check(math.isfinite(state.sigma_data) and state.sigma_data != mp.diffusion.dist.sigma_data,
+          f"sigma_data {state.sigma_data}")
+    want_subs = ["pre_diffusion"] * 2 + ["diffusion"] * 2 + [
+        "wd" if (i + 1) % 3 == 0 else "generator_slm" for i in range(9)]
+    check([r["sub_phase"] for r in recs] == want_subs,
+          f"sub-phases {[r['sub_phase'] for r in recs]}")
+    zero = dict.fromkeys(KERNELS, 0)
+    for r in recs:
+        m = r["metrics"]
+        check(all(math.isfinite(v) for v in m.values()), f"losses at step {r['iter']}: {m}")
+        if r["sub_phase"] != "pre_diffusion":
+            check(m["d_loss"] > 0 and m["diff_loss"] > 0, f"step {r['iter']}: {m}")
+        if r["sub_phase"] in ("generator_slm", "wd"):
+            check(m["slm_valid_fraction"] > 0, f"step {r['iter']}: no valid SLM sample")
+        use_ind = host_draws(SEED, r["iter"] - 1, r["iter"] - 1 - sum(per_epoch[:2]), True,
+                             cfg.slmadv_params.iter)[2]
+        r["use_ind"] = use_ind and r["sub_phase"] == "generator_slm"
+        want = ({**zero, **train2_launches(nets, r["sub_phase"], r["use_ind"])} if on_card
+                else zero)
+        check(r["launches"] == want, f"launches in step {r['iter']} ({r['sub_phase']}, "
+              f"use_ind {r['use_ind']}): {r['launches']} against {want}")
+        if "moved" in r:
+            check(set(r["moved"]) == moves[r["sub_phase"]],
+                  f"{r['sub_phase']} step {r['iter']} moved {r['moved']}")
+    check(sorted(r["sub_phase"] for r in recs if "moved" in r)
+          == ["diffusion", "generator_slm", "pre_diffusion", "wd"], "moved nets not checked")
+    # a step's time: from the previous callback's end to its own start; an
+    # epoch's first step is warm (new shapes and paths)
+    firsts = {0, per_epoch[0], per_epoch[0] + per_epoch[1]}
+    step_ms = {}
+    for i, r in enumerate(recs):
+        if i not in firsts:
+            step_ms.setdefault(r["sub_phase"], []).append(1e3 * (r["t"] - recs[i - 1]["t_end"]))
+    warm_ms = [1e3 * (recs[i]["t"] - (recs[i - 1]["t_end"] if i else t0)) for i in sorted(firsts)]
+    medians = {k: statistics.median(v) for k, v in step_ms.items()}
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    audio_s = b * frames * 300 / 24000.0
+    out = {"params": n_params, "batch": b, "frames": frames, "t_text": t_text, "mel_len": 96,
+           "step_ms": step_ms, "median_step_ms": medians, "warm_step_ms": warm_ms,
+           "audio_s_per_step": audio_s,
+           "train_audio_s_per_s": {k: audio_s / (v / 1e3) for k, v in medians.items()},
+           "peak_mem_bytes": peak, "sigma_data": state.sigma_data,
+           "log": [{k: r[k] for k in ("iter", "sub_phase", "use_ind", "metrics", "launches")}
+                   for r in recs],
+           "moved": {r["sub_phase"]: r["moved"] for r in recs if "moved" in r},
+           "launches": {k: sum(r["launches"][k] for r in recs) for k in KERNELS}}
+    print(f"train2: losses {[r['metrics'] for r in recs]}", flush=True)
+    print(f"train2: {len(recs)} steps; median step ms " + ", ".join(
+        f"{k} {medians[k]:.3f} (of {['%.3f' % v for v in step_ms[k]]}; "
+        f"{out['train_audio_s_per_s'][k]:.2f} training audio-s/s)" for k in medians)
+        + f"; warm {['%.1f' % v for v in warm_ms]} ms; peak memory {peak / 2**30:.2f} GiB; "
+        f"sigma_data {state.sigma_data:.6f}; launches per step (K1f, K1b, K3) "
+        f"{[(r['sub_phase'], r['use_ind'], tuple(r['launches'].values())[:3]) for r in recs]}; "
+        f"moved {out['moved']}; {card}", flush=True)
+    if profile:
+        trainer = Stage2Trainer(cfg, configs, nets, state.optimizer)
+        tb = to_device(batch, dev)
+        gen = torch.Generator(dev).manual_seed(SEED)
+        phase = Stage2Phase(True, True, True, 96, 4, slm_frame_capacity=500)
+        out["profile"] = profile_request(
+            torch, lambda: float(trainer.step(tb, phase, state.sigma_data, generator=gen)[0][
+                "g_loss"]),
+            mark=("adain_snake_fwd", "adain_snake_bwd", "maximum_path_kernel"))
+    return out
+
+
 def _write_corpus(root: Path, n: int, prefix: str, rng, n_short: int, sr: int = 22050):
     """``n`` seeded 16-bit PCM WAVs at ``sr`` Hz under ``root``, half of them
     ``n_short`` samples long and the rest up to 40% longer, and their list
@@ -806,7 +1009,12 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
             float(np.abs(v.detach().cpu().numpy() - final[f"{n}.{k}"]).max())
             for n, net in state.nets.items() for k, v in net.state_dict().items())
         del state
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
         out.update(first=first, resumed=resumed)
+        out["stage2"] = _train_files_stage2(torch, KA, KM, K2, spec, yml, tmp, args, on_card,
+                                            rng)
     finally:
         os.environ.pop(RANDOM_ENCODERS, None)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -827,6 +1035,166 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
           f"{peak / 2**30:.2f} GiB; resumed nets and AdamW states equal the file "
           f"({out['resume_tensors_equal']} tensors); resumed against straight max |diff| "
           f"{out['resumed_vs_straight_max_abs_diff']:.3e}; {card}", flush=True)
+    s2 = out["stage2"]
+    waits2 = s2["first"]["data_wait_ms"] + s2["resumed"]["data_wait_ms"]
+    print(f"train files stage 2 (PL-BERT, ASR, JDC and Whisper random): losses "
+          f"{[r['metrics'] for r in s2['first']['log']]}, resumed "
+          f"{[r['metrics'] for r in s2['resumed']['log']]}", flush=True)
+    print(f"train files stage 2: steps {[s2[r]['step_ms'] for r in ('first', 'resumed')]} ms; "
+          f"loader wait {['%.3f' % w for w in waits2]} ms; checkpoint bytes {s2['ckpt_bytes']} "
+          f"(counted beforehand {s2['ckpt_bytes_counted']}), save {s2['save_s']:.3f} s and "
+          f"load {s2['load_s']:.3f} s; peak memory "
+          f"{max(s2[r]['peak_mem_bytes'] for r in ('first', 'resumed')) / 2**30:.2f} GiB; "
+          f"sigma_data {s2['sigma_data']:.6f}; resumed step 3 equals the straight run's; "
+          f"{card}", flush=True)
+    return out
+
+
+def _train_files_stage2(torch, KA, KM, K2, spec, yml, tmp, args, on_card, rng):
+    """Stage 2 of the train-files phase: ``train_stage2.main`` from the
+    ``first_stage.npz`` the stage-1 run wrote into ``<tmp>/logs``, on the same
+    corpus with a seeded out-of-distribution text list: 2 epochs of 2 steps
+    (``diff_epoch`` 0, ``joint_epoch`` 1, ``save_freq`` 1), then epoch 1
+    again from ``epoch_2nd_00000.npz``.  Returns the records."""
+    import numpy as np
+    import yaml
+    from styletts2_tpu_torch import train_stage2
+    from styletts2_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    from styletts2_tpu_torch.train.loop import host_draws
+
+    zero = dict.fromkeys(KERNELS, 0)
+    ood = tmp / "ood_texts.txt"
+    ood.write_text("".join(f"{PHONEMES[int(rng.integers(4))]} {PHONEMES[int(rng.integers(4))]}"
+                           f"|0\n" for _ in range(16)))
+    spec["data_params"]["OOD_data"] = str(ood)
+    spec.update({"epochs_2nd": 2, "save_freq": 1})
+    spec["loss_params"].update({"diff_epoch": 0, "joint_epoch": 1})
+    min_len = spec["data_params"].get("min_length", 50)
+    check(all(len(ln.split("|")[0]) >= min_len for ln in ood.read_text().splitlines()),
+          "train-files: an OOD text is shorter than min_length")
+    out = {}
+
+    def counts():
+        return dict(zip(KERNELS, (KA.fwd_launches, KA.bwd_launches, KM.launches, K2.launches)))
+
+    def reset():
+        KA.fwd_launches = KA.bwd_launches = KM.launches = K2.launches = 0
+
+    def run(extra, log_dir):
+        spec["log_dir"] = str(log_dir)
+        yml.write_text(yaml.safe_dump(spec, allow_unicode=True))
+        recs = []
+
+        def log_cb(it, metrics):
+            val = "val_mel_loss" in metrics
+            recs.append({"iter": it, "metrics": metrics, "launches": counts(),
+                         "t": time.perf_counter(), "val": val,
+                         "kind": "val" if val else _sub_phase(metrics)})
+            reset()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset()
+        t0 = time.perf_counter()
+        state = train_stage2.main(args + extra, log_cb=log_cb)
+        wall = time.perf_counter() - t0
+        for rec in recs:
+            check(all(np.isfinite(v) for v in rec["metrics"].values()),
+                  f"train-files stage 2 losses at iter {rec['iter']}: {rec['metrics']}")
+            if rec["val"]:     # a validation batch (K1f 48, K3 1) and the sample dump's 96 and 1
+                want = {"adain_snake_fwd": 144, "adain_snake_bwd": 0, "maximum_path": 2}
+            else:              # the i-th step of its epoch
+                i = (rec["iter"] - 1) % 2
+                use_ind = rec["kind"] == "generator_slm" and host_draws(
+                    SEED, rec["iter"] - 1, i, True, spec["slmadv_params"]["iter"])[2]
+                want = train2_launches(state.nets, rec["kind"], use_ind)
+            check(rec["launches"] == ({**zero, **want} if on_card else zero),
+                  f"train-files stage 2 launches at iter {rec['iter']} ({rec['kind']}): "
+                  f"{rec['launches']} against {want}")
+        step_ms = {}
+        for a, b in zip(recs, recs[1:]):
+            if not (a["val"] or b["val"]):
+                step_ms.setdefault(b["kind"], []).append(1e3 * (b["t"] - a["t"]))
+        return state, {"wall_s": wall, "step_ms": step_ms,
+                       "log": [{k: r[k] for k in ("iter", "kind", "metrics", "launches")}
+                               for r in recs],
+                       "data_wait_ms": [1e3 * w for w in state.data_wait_s],
+                       "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else 0}
+
+    logs = tmp / "logs"
+    check((logs / "first_stage.npz").is_file(), "train-files: no first_stage.npz for stage 2")
+    state, first = run([], logs)
+    kinds = [r["kind"] for r in first["log"]]
+    check((state.epoch, state.iters) == (2, 4) and kinds == [
+        "diffusion", "diffusion", "val", "generator_slm", "generator_slm", "val"],
+        f"train-files stage 2: epoch {state.epoch}, iters {state.iters}, records {kinds}")
+    for name in ("epoch_2nd_00000.npz", "epoch_2nd_00001.npz", "2nd_stage.npz"):
+        check((logs / name).is_file(), f"train-files stage 2: {name} not written")
+        meta = json.loads((logs / (name + ".meta.json")).read_text())
+        check(math.isfinite(meta["extra"].get("sigma_data", math.nan)),
+              f"train-files stage 2: {name} holds no sigma_data: {meta}")
+    for epoch in (0, 1):
+        dump = logs / "samples" / f"epoch_{epoch:05d}"
+        names = sorted(os.listdir(dump)) if dump.is_dir() else []
+        check(all(f"{i}_{k}" in names for i in (0, 1) for k in ("gt.wav", "rec.wav",
+                                                                "pred.wav"))
+              and all(f"{i}_attn.npy" in names or f"{i}_attn.png" in names for i in (0, 1)),
+              f"train-files stage 2: samples of epoch {epoch}: {names}")
+    vals = [r["metrics"] for r in first["log"] if r["kind"] == "val"]
+    check(all(set(v) == {"val_mel_loss", "val_dur_loss", "val_F0_loss"} for v in vals),
+          f"train-files stage 2 validation: {vals}")
+
+    # a checkpoint's bytes, counted from the parameter counts beforehand: every
+    # tensor of the 14 nets in f32, and AdamW's two moments (and a step
+    # count per tensor) for each net stepped so far
+    def counted(stepped):
+        tensors = sum(t.numel() for net in state.nets.values() for t in net.state_dict().values())
+        adamw = sum(8 * p.numel() + 4 for n in stepped for p in state.nets[n].parameters())
+        return 4 * tensors + adamw
+    from styletts2_tpu_torch.train.stage2 import generator_nets
+    out["ckpt_bytes_counted"] = {
+        "epoch_2nd_00000 (diffusion)": counted(set(generator_nets(True, False)) | {"mpd", "msd"}),
+        "2nd_stage (joint)": counted(set(generator_nets(True, True)) | {"mpd", "msd"})}
+    out["ckpt_bytes"] = {"epoch_2nd_00000 (diffusion)":
+                         (logs / "epoch_2nd_00000.npz").stat().st_size,
+                         "2nd_stage (joint)": (logs / "2nd_stage.npz").stat().st_size}
+    timed = tmp / "timed2.npz"
+    if on_card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(str(timed), state.nets, state.optimizer, state.epoch, state.iters,
+                    extra={"sigma_data": state.sigma_data})
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    load_checkpoint(str(timed), state.nets, state.optimizer)
+    if on_card:
+        torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    timed.unlink()
+    (logs / "epoch_2nd_00001.npz").unlink()     # the state 2nd_stage.npz holds too
+    del state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    state, resumed = run(["--resume", str(logs / "epoch_2nd_00000.npz")], tmp / "resumed2")
+    check((state.epoch, state.iters) == (2, 4)
+          and [r["kind"] for r in resumed["log"]] == ["generator_slm", "generator_slm", "val"],
+          f"train-files stage 2 resumed: epoch {state.epoch}, iters {state.iters}")
+    # the resumed run's first step sees the nets, states, sigma_data and noise
+    # of the straight run's third: its losses before any update agree
+    straight3 = [r for r in first["log"] if r["kind"] != "val"][2]["metrics"]
+    for key in ("mel_loss", "dur_loss", "ce_loss", "norm_loss", "F0_loss", "lm_loss",
+                "sty_loss", "diff_loss", "d_loss"):
+        a, b = straight3[key], resumed["log"][0]["metrics"][key]
+        check(abs(a - b) <= 1e-6 * abs(a), f"resumed stage-2 step 3 {key} {b} against {a}")
+    out["sigma_data"] = state.sigma_data
+    del state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    out.update(first=first, resumed=resumed)
     return out
 
 
@@ -875,12 +1243,15 @@ def main() -> None:
     gc.collect()                          # the pre-TMA nets and optimizer go first
     torch.cuda.empty_cache()
     train_tma = phase_train(torch, KA, KM, K, profile=profile, tma=True, card=card)
-    gc.collect()                          # the TMA nets go before the trainer from files
+    gc.collect()                          # the TMA nets go before stage 2
+    torch.cuda.empty_cache()
+    train2 = phase_train2(torch, KA, KM, K, profile=profile, card=card)
+    gc.collect()                          # the stage-2 nets go before the trainer from files
     torch.cuda.empty_cache()
     train_files = phase_train_files(torch, KA, KM, K, card=card)
-    files_launches = {name: sum(r["launches"][name] for r in train_files["first"]["log"])
-                      for name in ("adain_snake_fwd", "adain_snake_bwd", "maximum_path",
-                                   "mrf_round")}
+    files_launches = {name: sum(r["launches"][name] for r in train_files["first"]["log"]
+                                + train_files["stage2"]["first"]["log"])
+                      for name in KERNELS}
 
     timed = {r["stage"]: r for r in kernel_rows if "ms" in r}
     s1 = timed["stage1"]
@@ -905,6 +1276,7 @@ def main() -> None:
             "name": name, "route": "cuda", "source": "styletts2_tpu_torch/csrc/adain_snake.cu",
             "replaces": replaces, "launches": train["launches"][name],
             "launches_tma": train_tma["launches"][name],
+            "launches_train2": train2["launches"][name],
             "launches_train_files": files_launches[name],
             "max_abs_err": max(r[f"{direction}_max_abs_err"] for r in k1_err),
             "ms": k1[f"{direction}_ms"], "device_ms": k1[f"{direction}_device_ms"],
@@ -917,6 +1289,7 @@ def main() -> None:
         "replaces": "styletts2_tpu/ops/pallas/monotonic_kernel.py:80",
         "launches": train["launches"]["maximum_path"],
         "launches_tma": train_tma["launches"]["maximum_path"],
+        "launches_train2": train2["launches"]["maximum_path"],
         "launches_train_files": files_launches["maximum_path"],
         "max_abs_err": max(r["max_abs_err"] for r in train_kernel_rows if "case" in r),
         "ms": k3["ms"], "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
@@ -927,7 +1300,7 @@ def main() -> None:
         {"card": card, "build_s": build_s, "nvcc_logs": logs, "mrf_round_sass_mma": sass,
          "kernel_checks": kernel_rows,
          "train_kernel_checks": train_kernel_rows, "serve": serve, "train": train,
-         "train_tma": train_tma, "train_files": train_files,
+         "train_tma": train_tma, "train2": train2, "train_files": train_files,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

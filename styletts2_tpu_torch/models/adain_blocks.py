@@ -8,7 +8,7 @@ stride-2 transposed conv "pool" on the residual) and 1/sqrt(2) scaling.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -35,8 +35,13 @@ class AdainResBlk1d(nn.Module):
 
 
 def adain_resblk1d_apply(m: AdainResBlk1d, x: torch.Tensor, s: torch.Tensor,
-                         lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         lengths: Optional[torch.Tensor] = None,
+                         dropout_keep: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                         dropout_p: float = 0.1) -> torch.Tensor:
     """x (B, C_in, T), s (B, S), lengths (B,) valid frames at the input rate.
+    ``dropout_keep`` (training): the keep masks of the dropout before each
+    conv, (B, C_in, T_out) and (B, C_out, T_out) bool, at rate ``dropout_p``
+    (ref: models.py:499-507); None: eval.
 
     Pad positions are re-zeroed after every non-conv stage: the norms' output
     there is nonzero, and the kernel-3 convs would leak it into the last
@@ -60,11 +65,15 @@ def adain_resblk1d_apply(m: AdainResBlk1d, x: torch.Tensor, s: torch.Tensor,
         if lengths is not None:
             keep_out = cm.length_mask(lengths * 2, h.shape[-1])[:, None, :].to(h.dtype)
             h = h * keep_out
+    if dropout_keep is not None:
+        h = cm.dropout(h, dropout_keep[0], dropout_p)
     h = cm.wn_conv1d(m.conv1, h, padding=1)
     h = adain1d(m.norm2, h, s, keep=None if keep_out is None else keep_out[:, 0, :])
     h = leaky_relu(h, 0.2)
     if keep_out is not None:
         h = h * keep_out
+    if dropout_keep is not None:
+        h = cm.dropout(h, dropout_keep[1], dropout_p)
     h = cm.wn_conv1d(m.conv2, h, padding=1)
     out = (h + sc) / math.sqrt(2.0)
     return out if keep_out is None else out * keep_out

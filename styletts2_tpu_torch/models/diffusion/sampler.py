@@ -1,8 +1,9 @@
-"""EDM/Karras schedule and the ADPM2 sampler (ref: Modules/diffusion/sampler.py).
+"""EDM/Karras preconditioning, its training loss, the Karras schedule and the
+ADPM2 sampler (ref: Modules/diffusion/sampler.py).
 
-The JAX sampler draws each step's noise from ``fold_in(key, i)``; here every
-step's noise is an explicit input, so a test can feed the port the noise JAX
-drew.
+The JAX package draws its noise from keys (each sampler step's from
+``fold_in(key, i)``); here every draw is an explicit input, so a test can
+feed the port the noise JAX drew.
 """
 
 from __future__ import annotations
@@ -10,6 +11,12 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+
+def log_normal_sigmas(normals: torch.Tensor, mean: float = -3.0, std: float = 1.0
+                      ) -> torch.Tensor:
+    """LogNormal training sigmas from standard normals (ref: sampler.py:24-33)."""
+    return torch.exp(mean + std * normals)
 
 
 def k_scale_weights(sigmas: torch.Tensor, sigma_data: float):
@@ -30,6 +37,20 @@ def k_denoise_fn(net: Callable, sigma_data: float) -> Callable:
         return c_skip * x_noisy + c_out * net(c_in * x_noisy, c_noise)
 
     return fn
+
+
+def k_diffusion_loss(net: Callable, x: torch.Tensor, sigma_data, sigma_normals: torch.Tensor,
+                     noise: torch.Tensor, dist_mean: float = -3.0, dist_std: float = 1.0
+                     ) -> torch.Tensor:
+    """The EDM-weighted denoising loss (ref: sampler.py:214-233) of clean
+    latents x (B, 1, C): sigmas from ``sigma_normals`` (B,), ``noise`` x's
+    shape; ``sigma_data`` a float or a 0-dim tensor."""
+    sigmas = log_normal_sigmas(sigma_normals, dist_mean, dist_std)
+    x_noisy = x + sigmas[:, None, None] * noise
+    x_denoised = k_denoise_fn(net, sigma_data)(x_noisy, sigmas)
+    losses = torch.mean(torch.square(x_denoised - x), dim=tuple(range(1, x.dim())))
+    weight = (sigmas ** 2 + sigma_data ** 2) * (sigmas * sigma_data) ** -2
+    return torch.mean(losses * weight)
 
 
 def karras_schedule(num_steps: int, sigma_min: float = 1e-4, sigma_max: float = 3.0,

@@ -1,6 +1,7 @@
-"""The stage-1 GAN discriminators (ref: Modules/discriminators.py): the
+"""The GAN discriminators (ref: Modules/discriminators.py): the
 multi-period discriminator (MPD) and the multi-resolution spectrogram
-discriminator (MSD), with their feature maps for the feature-matching loss.
+discriminator (MSD), with their feature maps for the feature-matching loss,
+and stage 2's Whisper discriminator head (WD) over the stacked SLM features.
 
 Every conv is weight-normed.  The MPD's period towers fold the period into
 the batch and run as conv1d: each kernel is (K, 1) and never mixes the
@@ -21,6 +22,7 @@ from torch import nn
 
 from ..nn.activations import leaky_relu
 from ..nn.conv import conv1d, conv2d
+from . import common as cm
 from .common import WeightNormed
 
 LRELU_SLOPE = 0.1
@@ -148,3 +150,26 @@ def msd_apply(m: MultiResSpecDiscriminator, y: torch.Tensor, y_hat: torch.Tensor
               batched: bool = True) -> Outputs:
     """As ``mpd_apply``, for the spectrogram towers."""
     return _apply(msd_towers, m, y, y_hat, batched)
+
+
+class WhisperDiscriminator(nn.Module):
+    """The SLM discriminator head: a 1x1 conv from the stacked Whisper states
+    (``slm_hidden * slm_layers`` channels), three k=5 convs to 4x
+    ``initial_channel`` and a k=3 score conv, all weight-normed."""
+
+    def __init__(self, slm_hidden: int = 512, slm_layers: int = 7, initial_channel: int = 64):
+        super().__init__()
+        c = initial_channel
+        self.pre = cm.WNConv1d(slm_hidden * slm_layers, c, 1)
+        self.convs = nn.ModuleList([cm.WNConv1d(c, c * 2, 5), cm.WNConv1d(c * 2, c * 4, 5),
+                                    cm.WNConv1d(c * 4, c * 4, 5)])
+        self.conv_post = cm.WNConv1d(c * 4, 1, 3)
+
+
+def whisper_discriminator_apply(m: WhisperDiscriminator, x: torch.Tensor) -> torch.Tensor:
+    """x (B, slm_hidden * slm_layers, T) stacked SLM features -> scores (B, T)."""
+    x = cm.wn_conv1d(m.pre, x)
+    for conv in m.convs:
+        x = leaky_relu(cm.wn_conv1d(conv, x, padding=2), LRELU_SLOPE)
+    x = cm.wn_conv1d(m.conv_post, x, padding=1)
+    return x.reshape(x.shape[0], -1)

@@ -1,6 +1,7 @@
 """The nets of the LJSpeech zoo (ref: models.py:1002-1110): the inference
-nets, stage 1's aligner, pitch extractor and style encoder, and its TMA
-phase's discriminators and Whisper encoder; the reference's initialisation
+nets, stage 1's aligner, pitch extractor and style encoder, its TMA phase's
+discriminators and Whisper encoder, and stage 2's prosody style encoder
+(``predictor_encoder``) and Whisper discriminator (``wd``); the reference's initialisation
 (``init_reference_``) and the bench's seeded random one (``init_random_``);
 and the bridge from the JAX package's parameter trees.
 
@@ -26,7 +27,8 @@ from .asr import ASRCNN, ASRConfig
 from .common import ChannelLayerNorm, SNConv2d
 from .decoder.istftnet import Decoder
 from .diffusion.denoiser import Denoiser
-from .discriminators import MPD_CHANNELS, MultiPeriodDiscriminator, MultiResSpecDiscriminator
+from .discriminators import (MPD_CHANNELS, MultiPeriodDiscriminator, MultiResSpecDiscriminator,
+                             WhisperDiscriminator)
 from .diffusion.denoiser import _LearnedPositional
 from .jdc import JDC, BatchNormStats, JDCConfig
 from .plbert import PLBert, PLBertConfig
@@ -42,6 +44,10 @@ INFERENCE_NETS = ("bert", "bert_encoder", "predictor", "decoder", "text_encoder"
 STAGE1_NETS = ("text_encoder", "style_encoder", "decoder", "text_aligner", "pitch_extractor")
 # stage 1 from TMA on: the discriminators and the frozen Whisper encoder too
 STAGE1_TMA_NETS = STAGE1_NETS + ("mpd", "msd", "slm_encoder")
+# stage 2: every net of configs/ljspeech.yml, the JAX zoo's 13 and the
+# Whisper encoder
+STAGE2_NETS = INFERENCE_NETS + ("predictor_encoder", "style_encoder", "text_aligner",
+                                "pitch_extractor", "mpd", "msd", "wd", "slm_encoder")
 
 
 def build_nets(mp: ModelParams, plbert_cfg: PLBertConfig = PLBertConfig(),
@@ -76,11 +82,14 @@ def build_nets(mp: ModelParams, plbert_cfg: PLBertConfig = PLBertConfig(),
             head_features=tr.head_features, multiplier=tr.multiplier,
             embedding_max_length=plbert_cfg.max_position_embeddings)}),
         "style_encoder": lambda: StyleEncoder(mp.dim_in, mp.style_dim, mp.hidden_dim),
+        "predictor_encoder": lambda: StyleEncoder(mp.dim_in, mp.style_dim, mp.hidden_dim),
         "text_aligner": lambda: ASRCNN(asr_cfg or ASRConfig(n_token=mp.n_token)),
         "pitch_extractor": lambda: JDC(jdc_cfg),
         "mpd": lambda: MultiPeriodDiscriminator(mpd_channels),
         "msd": lambda: MultiResSpecDiscriminator(msd_width),
         "slm_encoder": lambda: WhisperEncoder(whisper_cfg),
+        "wd": lambda: WhisperDiscriminator(mp.slm.hidden, mp.slm.nlayers,
+                                           mp.slm.initial_channel),
     }
     unknown = [n for n in nets if n not in makers]
     if unknown:

@@ -1,12 +1,15 @@
-"""The stage-1 training driver (the port of the JAX package's
-``train/loop.py::run_stage1``), before and from ``TMA_epoch``.
+"""The training drivers (the port of the JAX package's ``train/loop.py``):
+``run_stage1``, before and from ``TMA_epoch``, and ``run_stage2``, across
+``diff_epoch`` and ``joint_epoch``.
 
 The host loop owns epochs, batches, the clip-length buckets, validation,
-checkpoints and resume; each step is ``Stage1Trainer.step`` on one device.
-Step ``iters`` draws its noise from a generator seeded by ``(seed, iters)``,
-the counterpart of the JAX loop's ``fold_in(key, iters)``, so a resumed run
-draws what an uninterrupted one draws.  Data parallelism is not ported yet
-(ROADMAP.md).
+checkpoints and resume; each step is ``Stage1Trainer.step`` or
+``Stage2Trainer.step`` on one device.  Step ``iters`` draws its noise from a
+generator seeded by ``(seed, iters)``, the counterpart of the JAX loop's
+``fold_in(key, iters)``, and stage 2's host draws (the sampler's step count
+and the SLM adversarial pass's choices) from a numpy generator seeded the
+same way, so a resumed run draws what an uninterrupted one draws.  Data
+parallelism is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +28,7 @@ from ..config import Config
 from .checkpoint import load_checkpoint, save_checkpoint
 from .optimizers import MultiOptimizer
 from .stage1 import Stage1Trainer
+from .stage2 import Stage2Phase, Stage2Trainer
 
 logger = logging.getLogger(__name__)
 
@@ -37,6 +41,8 @@ class TrainState:
     iters: int = 0
     # host seconds spent waiting on train_loader for each batch of this run
     data_wait_s: List[float] = dataclasses.field(default_factory=list)
+    # stage 2: the diffusion's sigma_data estimate, carried from step to step
+    sigma_data: float = 0.2
 
 
 def _clip_lengths(mel_lengths: np.ndarray, max_len: int) -> int:
@@ -59,13 +65,13 @@ def make_lr_map(cfg: Config) -> Dict[str, float]:
 def _device(device) -> torch.device:
     if device is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("run_stage1 runs on CUDA by default and no CUDA device is "
+            raise RuntimeError("the trainers run on CUDA by default and no CUDA device is "
                                "available; pass device='cpu' explicitly")
         return torch.device("cuda")
     return torch.device(device)
 
 
-TRAIN_STREAM, VAL_STREAM = 0, 1
+TRAIN_STREAM, VAL_STREAM, HOST_STREAM = 0, 1, 2
 
 
 def seeded_generator(seed: int, index: int, device, stream: int = TRAIN_STREAM
@@ -80,11 +86,24 @@ def seeded_generator(seed: int, index: int, device, stream: int = TRAIN_STREAM
 
 def to_device(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
     """The step's tensors of a numpy batch: ``waves`` f32, the lengths and
-    tokens int64."""
+    tokens int64 (the reference texts too, where the batch has them)."""
     tb = {"waves": torch.as_tensor(np.asarray(batch["waves"], np.float32), device=dev)}
-    for k in ("mel_input_length", "texts", "input_lengths"):
-        tb[k] = torch.as_tensor(np.asarray(batch[k]), device=dev).long()
+    for k in ("mel_input_length", "texts", "input_lengths", "ref_texts", "ref_lengths"):
+        if k in batch:
+            tb[k] = torch.as_tensor(np.asarray(batch[k]), device=dev).long()
     return tb
+
+
+def _batches(state: TrainState, loader):
+    """The loader's batches, each wait on it appended to ``state.data_wait_s``."""
+    batches = iter(loader)
+    while True:
+        t_wait = time.perf_counter()
+        batch = next(batches, None)
+        if batch is None:
+            return
+        state.data_wait_s.append(time.perf_counter() - t_wait)
+        yield batch
 
 
 def run_stage1(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
@@ -124,13 +143,7 @@ def run_stage1(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
     for epoch in range(state.epoch, cfg.epochs_1st):
         tma = epoch >= cfg.loss_params.TMA_epoch
         t0 = time.time()
-        batches = iter(train_loader(epoch))
-        while True:
-            t_wait = time.perf_counter()
-            batch = next(batches, None)
-            if batch is None:
-                break
-            state.data_wait_s.append(time.perf_counter() - t_wait)
+        for batch in _batches(state, train_loader(epoch)):
             mel_len = _bucket(_clip_lengths(np.asarray(batch["mel_input_length"]),
                                             cfg.max_len))
             if mel_len < 40:
@@ -147,7 +160,7 @@ def run_stage1(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
         state.epoch = epoch + 1
         logger.info("stage1 epoch %d done in %.1fs", epoch, time.time() - t0)
         if val_loader is not None:
-            _run_validation(cfg, configs, state, val_loader, epoch, log_cb, dev, seed)
+            _run_validation(cfg, configs, state, val_loader, epoch, log_cb, dev, seed, stage=1)
         if cfg.log_dir and (epoch + 1) % cfg.save_freq == 0:
             save_checkpoint(os.path.join(cfg.log_dir, f"epoch_1st_{epoch:05d}.npz"), nets, opt,
                             state.epoch, state.iters)
@@ -157,28 +170,132 @@ def run_stage1(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
     return state
 
 
-def _run_validation(cfg: Config, configs: Dict, state: TrainState, val_loader, epoch: int,
-                    log_cb, dev: torch.device, seed: int = 0) -> Dict[str, float]:
-    """The mean of ``make_stage1_val_step``'s losses over ``val_loader(epoch)``
-    (ref: train_first.py:457-545), logged as ``val_*`` at ``state.iters``;
-    the clip starts come from a generator seeded by ``(seed, epoch)``."""
-    from .validate import make_stage1_val_step
+def host_draws(seed: int, iters: int, i: int, joint: bool, slm_iter: int
+               ) -> Tuple[int, bool, bool, bool, bool]:
+    """Stage 2's host draws of step ``iters`` (the ``i``-th batch of its
+    epoch), in the JAX loop's order and with its short-circuits
+    (``styletts2_tpu/train/loop.py:176-182``): the sampler's step count in
+    {3, 4}, the SLM discriminator step on every ``slm_iter``-th batch, the
+    ground-truth style instead of a sampled one, and the discriminator
+    step's two choices.  The JAX loop draws them from one stream that a
+    resume restarts; here each step's come from ``(seed, iters)`` alone."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, HOST_STREAM, iters]))
+    num_steps = int(rng.integers(3, 5))
+    run_disc = joint and (i + 1) % slm_iter == 0
+    use_ind = joint and bool(rng.random() < 0.5)
+    use_rec = run_disc and bool(rng.integers(0, 2))
+    real_alt = use_rec and bool(rng.integers(0, 2))
+    return num_steps, run_disc, use_ind, use_rec, real_alt
 
+
+def run_stage2(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
+               val_loader=None, max_steps: Optional[int] = None,
+               log_cb: Optional[Callable[[int, Dict], None]] = None,
+               resume_from: Optional[str] = None, device=None, seed: int = 0
+               ) -> TrainState:
+    """Train ``nets`` (the ``models.zoo.STAGE2_NETS``) in place: the prosody
+    nets, from ``cfg.loss_params.diff_epoch`` the diffusion and the MPD/MSD
+    step, from ``joint_epoch`` the style encoder and decoder and the SLM
+    adversarial update (``train.stage2``).
+
+    The loaders and ``configs`` as in ``run_stage1``; the batches also hold
+    ``ref_texts`` (B, L) and ``ref_lengths`` (B,), the out-of-distribution
+    texts.  ``TrainState.sigma_data`` starts at the config's
+    ``diffusion.dist.sigma_data`` and carries each step's estimate.
+    ``resume_from``: a checkpoint whose nets, AdamW states, ``epoch``,
+    ``iters`` and ``sigma_data`` the run continues from.  After each epoch:
+    validation (``val_mel_loss``, ``val_dur_loss``, ``val_F0_loss``) and,
+    every ``cfg.save_freq`` epochs, a sample dump of the first validation
+    batch under ``<log_dir>/samples/epoch_<epoch>`` and a checkpoint
+    ``epoch_2nd_{epoch:05d}.npz``; at the end ``2nd_stage.npz``.  A run cut
+    by ``max_steps`` saves nothing.
+    """
+    dev = _device(device)
+    nets.to(dev)
+    opt = MultiOptimizer(nets, make_lr_map(cfg), default_lr=cfg.optimizer_params.lr)
+    trainer = Stage2Trainer(cfg, configs, nets, opt)
+    trainer.check_nets()
+    state = TrainState(nets, opt, sigma_data=cfg.model_params.diffusion.dist.sigma_data)
+    if resume_from:
+        _, state.epoch, state.iters, extra = load_checkpoint(resume_from, nets, opt)
+        state.sigma_data = float(extra.get("sigma_data", state.sigma_data))
+        logger.info("resumed stage2 from %s at epoch %d, iter %d", resume_from,
+                    state.epoch, state.iters)
+    lp, adv = cfg.loss_params, cfg.slmadv_params
+    frame_capacity = _bucket(adv.max_len, 50)
+    steps_done = 0
+
+    def save(name):
+        save_checkpoint(os.path.join(cfg.log_dir, name), nets, opt, state.epoch, state.iters,
+                        extra={"sigma_data": state.sigma_data})
+
+    for epoch in range(state.epoch, cfg.epochs_2nd):
+        diff, joint = epoch >= lp.diff_epoch, epoch >= lp.joint_epoch
+        t0 = time.time()
+        for i, batch in enumerate(_batches(state, train_loader(epoch))):
+            mel_len = _bucket(_clip_lengths(np.asarray(batch["mel_input_length"]),
+                                            cfg.max_len))
+            if mel_len < 40:
+                continue
+            num_steps, run_disc, use_ind, use_rec, real_alt = host_draws(
+                seed, state.iters, i, joint, adv.iter)
+            phase = Stage2Phase(diff, joint, diff, mel_len, num_steps, run_disc, use_ind,
+                                use_rec, real_alt, frame_capacity)
+            metrics, sigma_data = trainer.step(
+                to_device(batch, dev), phase, state.sigma_data,
+                generator=seeded_generator(seed, state.iters, dev))
+            state.sigma_data = float(sigma_data)
+            state.iters += 1
+            steps_done += 1
+            if log_cb and state.iters % cfg.log_interval == 0:
+                log_cb(state.iters, {k: float(v) for k, v in metrics.items()})
+            if max_steps and steps_done >= max_steps:
+                return state
+        state.epoch = epoch + 1
+        logger.info("stage2 epoch %d done in %.1fs", epoch, time.time() - t0)
+        if val_loader is not None:
+            _run_validation(cfg, configs, state, val_loader, epoch, log_cb, dev, seed, stage=2)
+        if cfg.log_dir and (epoch + 1) % cfg.save_freq == 0:
+            save(f"epoch_2nd_{epoch:05d}.npz")
+    if cfg.log_dir:
+        save("2nd_stage.npz")
+    return state
+
+
+def _run_validation(cfg: Config, configs: Dict, state: TrainState, val_loader, epoch: int,
+                    log_cb, dev: torch.device, seed: int = 0, stage: int = 1
+                    ) -> Dict[str, float]:
+    """The mean of the stage's validation losses over ``val_loader(epoch)``
+    (ref: train_first.py:457-545, train_second.py:949-1068), logged as
+    ``val_*`` at ``state.iters``; the clip starts come from a generator
+    seeded by ``(seed, epoch)``.  In stage 2, every ``cfg.save_freq``
+    epochs, the samples of the first batch are written under
+    ``<log_dir>/samples/epoch_<epoch>`` (``train.samples``)."""
+    from .validate import make_stage1_val_step, make_stage2_val_step
+
+    make = make_stage1_val_step if stage == 1 else make_stage2_val_step
     totals: Dict[str, float] = {}
     count = 0
     steps: Dict = {}
+    first = None
     generator = seeded_generator(seed, epoch, dev, VAL_STREAM)
     for batch in val_loader(epoch):
         mel_len = _bucket(_clip_lengths(np.asarray(batch["mel_input_length"]), cfg.max_len))
         if mel_len < 40:
             continue
         if mel_len not in steps:
-            steps[mel_len] = make_stage1_val_step(cfg, configs, mel_len)
+            steps[mel_len] = make(cfg, configs, mel_len)
         tb = to_device(batch, dev)
+        first = tb if first is None else first
         clip_u = torch.rand((tb["texts"].shape[0],), generator=generator, device=dev)
         for k, v in steps[mel_len](state.nets, tb, clip_u).items():
             totals[k] = totals.get(k, 0.0) + float(v)
         count += 1
+    if stage == 2 and first is not None and cfg.log_dir and (epoch + 1) % cfg.save_freq == 0:
+        from .samples import generate_samples
+
+        generate_samples(state.nets, first, os.path.join(cfg.log_dir, "samples",
+                                                         f"epoch_{epoch:05d}"))
     means = {f"val_{k}": v / count for k, v in totals.items()} if count else {}
     if means and log_cb:
         log_cb(state.iters, means)

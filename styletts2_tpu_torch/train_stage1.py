@@ -51,6 +51,37 @@ def grow_n_token(cfg):
     return cfg
 
 
+def build_loaders(cfg):
+    """The train and validation loaders of ``cfg.data_params``'s lists."""
+    from .data import build_dataloader
+
+    dp = cfg.data_params
+    with open(dp.train_data, encoding="utf-8", errors="ignore") as f:
+        train_list = f.readlines()
+    with open(dp.val_data, encoding="utf-8", errors="ignore") as f:
+        val_list = f.readlines()
+    train_loader = build_dataloader(
+        train_list, dp.root_path, OOD_data=dp.OOD_data, min_length=dp.min_length,
+        batch_size=cfg.batch_size, num_workers=dp.num_workers,
+        prefetch_batches=dp.prefetch_batches)
+    val_loader = build_dataloader(
+        val_list, dp.root_path, validation=True, OOD_data=dp.OOD_data,
+        batch_size=cfg.batch_size, num_workers=min(2, dp.num_workers))
+    return train_loader, val_loader
+
+
+def metrics_logger(writer, log_cb: Optional[Callable[[int, Dict], None]] = None):
+    """``log_cb`` for a training loop: each metrics line to ``writer`` and
+    the log, then to ``log_cb``."""
+    def write(step, metrics):
+        writer.add_scalars(step, metrics)
+        logging.info("step %d | %s", step,
+                     " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
+        if log_cb is not None:
+            log_cb(step, metrics)
+    return write
+
+
 def main(argv: Optional[Sequence[str]] = None,
          log_cb: Optional[Callable[[int, Dict], None]] = None):
     """Parse ``argv`` (default ``sys.argv[1:]``) and train; returns the
@@ -70,7 +101,6 @@ def main(argv: Optional[Sequence[str]] = None,
     import torch
 
     from .config import load_config
-    from .data import build_dataloader
     from .models.whisper import WhisperConfig
     from .models.zoo import (STAGE1_NETS, STAGE1_TMA_NETS, build_nets, export_params,
                              init_reference_, load_jax_params)
@@ -88,19 +118,7 @@ def main(argv: Optional[Sequence[str]] = None,
     os.makedirs(cfg.log_dir, exist_ok=True)
     cfg = grow_n_token(cfg)
 
-    with open(cfg.data_params.train_data, encoding="utf-8", errors="ignore") as f:
-        train_list = f.readlines()
-    with open(cfg.data_params.val_data, encoding="utf-8", errors="ignore") as f:
-        val_list = f.readlines()
-    train_loader = build_dataloader(
-        train_list, cfg.data_params.root_path, OOD_data=cfg.data_params.OOD_data,
-        min_length=cfg.data_params.min_length, batch_size=cfg.batch_size,
-        num_workers=cfg.data_params.num_workers,
-        prefetch_batches=cfg.data_params.prefetch_batches)
-    val_loader = build_dataloader(
-        val_list, cfg.data_params.root_path, validation=True,
-        OOD_data=cfg.data_params.OOD_data, batch_size=cfg.batch_size,
-        num_workers=min(2, cfg.data_params.num_workers))
+    train_loader, val_loader = build_loaders(cfg)
 
     tma = cfg.epochs_1st > cfg.loss_params.TMA_epoch
     configs = {"model": cfg.model_params, "whisper": WhisperConfig()}
@@ -132,17 +150,10 @@ def main(argv: Optional[Sequence[str]] = None,
             load_checkpoint(cfg.pretrained_model, nets)
 
     writer = MetricsWriter(cfg.log_dir)
-
-    def write(step, metrics):
-        writer.add_scalars(step, metrics)
-        logging.info("step %d | %s", step,
-                     " ".join(f"{k}={v:.4f}" for k, v in metrics.items()))
-        if log_cb is not None:
-            log_cb(step, metrics)
-
     try:
         return run_stage1(cfg, configs, nets, train_loader, val_loader,
-                          max_steps=args.max_steps, log_cb=write, resume_from=resume_from,
+                          max_steps=args.max_steps, log_cb=metrics_logger(writer, log_cb),
+                          resume_from=resume_from,
                           device=device, seed=INIT_SEED)
     finally:
         writer.close()

@@ -47,7 +47,7 @@ from styletts2_tpu.models.asr import ASRConfig as JASRConfig
 from styletts2_tpu.models.asr import init_asr
 from styletts2_tpu.models.decoder.istftnet import init_decoder
 from styletts2_tpu.models.diffusion.denoiser import init_denoiser
-from styletts2_tpu.models.discriminators import init_mpd, init_msd
+from styletts2_tpu.models.discriminators import init_mpd, init_msd, init_whisper_discriminator
 from styletts2_tpu.models.jdc import JDCConfig as JJDCConfig
 from styletts2_tpu.models.jdc import init_jdc
 from styletts2_tpu.models.plbert import PLBertConfig as JPLBertConfig
@@ -64,12 +64,12 @@ from styletts2_tpu_torch.models.common import SNConv2d
 from styletts2_tpu_torch.models.jdc import JDCConfig
 from styletts2_tpu_torch.models.plbert import PLBertConfig
 from styletts2_tpu_torch.models.whisper import WhisperConfig
-from styletts2_tpu_torch.models.zoo import (INFERENCE_NETS, STAGE1_TMA_NETS, build_nets,
-                                            export_params, flatten, init_reference_)
+from styletts2_tpu_torch.models.zoo import (STAGE2_NETS, build_nets, export_params, flatten,
+                                            init_reference_)
 
 torch.set_num_threads(1)
 
-PORT_NETS = tuple(dict.fromkeys(INFERENCE_NETS + STAGE1_TMA_NETS))
+PORT_NETS = STAGE2_NETS
 PLBERT = dict(vocab_size=179, embedding_size=8, hidden_size=24, num_attention_heads=2,
               intermediate_size=32, max_position_embeddings=64, num_hidden_layers=1)
 ASR = dict(hidden_dim=32, n_layers=1, n_token=179, token_embedding_dim=16,
@@ -99,6 +99,8 @@ def jax_inits(jmp, pl, wcfg):
                                                     kernel_size=5, depth=jmp.n_layer),
         "style_encoder": lambda k: init_style_encoder(k, jmp.dim_in, jmp.style_dim,
                                                       jmp.hidden_dim),
+        "predictor_encoder": lambda k: init_style_encoder(k, jmp.dim_in, jmp.style_dim,
+                                                          jmp.hidden_dim),
         "diffusion": lambda k: {"transformer": init_denoiser(
             k, channels=jmp.style_dim * 2, context_embedding_features=pl.hidden_size,
             num_layers=tr.num_layers, num_heads=tr.num_heads,
@@ -109,6 +111,8 @@ def jax_inits(jmp, pl, wcfg):
         "mpd": init_mpd,
         "msd": init_msd,
         "slm_encoder": lambda k: init_whisper_encoder(k, wcfg),
+        "wd": lambda k: init_whisper_discriminator(k, jmp.slm.hidden, jmp.slm.nlayers,
+                                                   jmp.slm.initial_channel),
     }
 
 
