@@ -11,7 +11,8 @@ Phases, each of which exits non-zero when it fails:
    sm_90a (one nvcc per source, all started together);
 2. kernels: hold each kernel against its plain PyTorch version at the
    shapes its path gives it, and time both: mrf_round (K2) at the serving
-   shapes of batch 1 and of the batched call, beside cuDNN's conv alone in
+   shapes of batch 1 and of the batched call, the iSTFTNet's 256 and 128
+   channels and the HiFi-GAN's 64 and 32, beside cuDNN's conv alone in
    f32 and in TF32, after counting the TF32 tensor-core instructions in its
    library (``cuobjdump -sass``); adain_snake forward and backward (K1f,
    K1b) at the stage-1 training shapes, those of max_len 400 and a short
@@ -24,6 +25,12 @@ Phases, each of which exits non-zero when it fails:
    ``InferenceEngine.synthesize``, count the kernels' launches in each, and
    hold the fused decoder (K2) against the unfused one (whose AdaIN -> Snake
    pairs run K1f) on the same inputs;
+3b. serve libritts: the same for the full-width LibriTTS multispeaker port
+   (the style-conditioned denoiser, the HiFi-GAN decoder, whose rounds run
+   K2 at 256, 128, 64 and 32 channels): ``compute_style`` of a seeded
+   reference clip, ``style_transfer`` requests with 96 launches each, the
+   fused decoder against the unfused one, and ``python -m
+   styletts2_tpu_torch.demo`` in this process writing a wave file;
 4. train: build the full-width LJSpeech stage-1 nets with seeded random
    weights and take 1 + 5 pre-TMA steps through ``train.loop.run_stage1``
    (batch 16, clip 96 aligner frames, f32, TF32 off), counting the kernels'
@@ -56,7 +63,9 @@ Phases, each of which exits non-zero when it fails:
    ``first_stage.npz`` that run wrote, with a seeded out-of-distribution
    text list: an epoch with diffusion and a joint one, validation and a
    sample dump after each, checkpoints with ``sigma_data``, then the joint
-   epoch again resumed from the first's checkpoint;
+   epoch again resumed from the first's checkpoint.  Both stages dump
+   samples after each validation (K1f 96, K3 1 a dump); a dump that fails
+   only warns in the trainers, so any such warning fails the phase;
 8. print the kernels line, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
@@ -138,18 +147,26 @@ def bound_ms(nbytes: float, flops: float = 0.0, flop_per_s: float = F32_FLOP_PER
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# mrf_round's timed shapes, the widest round (k=11, d=5): the iSTFTNet
+# generator's two stages at batch 1 (frame capacity 200) and at the batched
+# serving call's batch 4 (capacity 1600); the HiFi-GAN's 64- and 32-channel
+# stages at batch 1 (a short capacity of 40 and 80 generator input frames)
+# and at batch 4 (capacity 1600)
+MRF_SHAPES = (("stage0", 1, 256, 4000), ("stage1", 1, 128, 24000),
+              ("stage0_b4", 4, 256, 32000), ("stage1_b4", 4, 128, 192000),
+              ("hifigan64", 1, 64, 12000), ("hifigan32", 1, 32, 24000),
+              ("hifigan64_b4", 4, 64, 480000), ("hifigan32_b4", 4, 32, 960000))
+
+
 def phase_kernels(torch, K):
-    """mrf_round against mrf_round_plain at the generator's two stage shapes,
-    the widest round (k=11, d=5): batch 1 at frame capacity 200, and the
-    batched serving call's batch 4 at capacity 1600."""
+    """mrf_round against mrf_round_plain at ``MRF_SHAPES``."""
     import torch.nn.functional as F
     from styletts2_tpu_torch.nn.activations import snake
 
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(SEED)
     rows = []
-    for stage, b, c, t in (("stage0", 1, 256, 4000), ("stage1", 1, 128, 24000),
-                           ("stage0_b4", 4, 256, 32000), ("stage1_b4", 4, 128, 192000)):
+    for stage, b, c, t in MRF_SHAPES:
         k, d = 11, 5
         x = torch.randn((b, c, t), generator=g, device=dev)
         lengths = torch.tensor([t * 4 // 5, t, t // 2, t * 3 // 4][:b], dtype=torch.int32,
@@ -368,6 +385,176 @@ def phase_serve(torch, K, profile=False):
     print(f"serve fused (mrf_round) vs unfused (adain_snake fwd + cuDNN conv) decoder: "
           f"{parity}", flush=True)
     return {"params": n_params, "runs": runs, "decoder_parity": parity, "t_mel": t_mel}
+
+
+def reference_clip(seconds: float = 3.0, sr: int = 24000):
+    """A seeded reference clip: a gliding two-harmonic tone under noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    t = np.arange(int(sr * seconds)) / sr
+    f = 120.0 + 30.0 * np.sin(2 * np.pi * 0.5 * t)
+    phase = 2 * np.pi * np.cumsum(f) / sr
+    clip = 0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase) + 0.02 * rng.standard_normal(t.size)
+    return clip.astype(np.float32)
+
+
+def phase_serve_libritts(torch, K, KA, profile=False, card="", dev="cuda", mp=None,
+                         demo_config=None):
+    """LibriTTS multispeaker serving at full width (``libritts_config()``:
+    12-layer PL-BERT, the style-conditioned denoiser, the HiFi-GAN decoder
+    of 1024 / 64 channels over stages of 256, 128, 64 and 32, both style
+    encoders), seeded random weights: ``compute_style`` of a seeded 3-second
+    clip, then ``style_transfer`` of the four sentences batched, of one, and
+    of one at ``embedding_scale`` 2, each with 96 mrf_round launches and
+    waveforms of ``sum(pred_dur) * 600`` samples; the fused decoder against
+    the unfused one (K1f + cuDNN) inside PARITY.md's envelope; then
+    ``python -m styletts2_tpu_torch.demo`` in this process on
+    ``configs/libritts.yml`` with the clip written as a wave file.  ``dev``,
+    ``mp`` and ``demo_config`` (a YAML path) size a rehearsal on the CPU,
+    where the wrappers run their plain versions and launch nothing."""
+    import tempfile
+    import wave
+
+    import numpy as np
+    from scipy.io import wavfile
+    from styletts2_tpu_torch import demo
+    from styletts2_tpu_torch.config import libritts_config
+    from styletts2_tpu_torch.infer import SAMPLES_PER_FRAME, InferenceEngine
+    from styletts2_tpu_torch.models.decoder.hifigan import decoder_apply
+    from styletts2_tpu_torch.models.plbert import PLBertConfig
+    from styletts2_tpu_torch.models.zoo import STYLE_INFERENCE_NETS, build_nets, init_random_
+
+    on_card = torch.device(dev).type == "cuda"
+    mp, pl = mp or libritts_config().model_params, PLBertConfig()
+    # a stage: noise_res and 3 MRF resblocks, 6 rounds each
+    launches_per_call = 4 * (6 + 3 * 6) if on_card else 0
+    nets = init_random_(build_nets(mp, pl), SEED)      # decoder 2 x 512 wide, asr_res 64
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+    check(tuple(nets) == STYLE_INFERENCE_NETS, f"LibriTTS nets {tuple(nets)}")
+    # Random weights drive the output conv far past tanh's linear range, where
+    # the waveform sits at +-1 and hides any difference between two decoders:
+    # scale it down, as the serve phase does for the iSTFTNet head
+    with torch.no_grad():
+        nets["decoder"].generator.conv_post.weight_g.mul_(0.05)
+    n_params = sum(p.numel() for p in nets.parameters())
+    print(f"serve libritts: {n_params} parameters ({n_params / 1e6:.1f} M), seeded random "
+          f"weights", flush=True)
+    eng = InferenceEngine(nets, mp, pl, device=None if on_card else dev)  # None: the GPU
+    check(eng.device.type == torch.device(dev).type, f"engine on {eng.device}")
+    clip = reference_clip()
+    sync()
+    t0 = time.perf_counter()
+    ref_s = eng.compute_style(clip)
+    sync()
+    style_ms = 1e3 * (time.perf_counter() - t0)
+    check(tuple(ref_s.shape) == (1, 2 * mp.style_dim) and bool(torch.isfinite(ref_s).all()),
+          f"compute_style gave {tuple(ref_s.shape)}")
+
+    def request(texts, **kw):
+        K.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        wavs, durs = eng.style_transfer(texts, ref_s, diffusion_steps=STEPS,
+                                        return_durations=True, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        launches = K.launches
+        if isinstance(wavs, np.ndarray):
+            wavs, durs = [wavs], [durs]
+        for w, dur in zip(wavs, durs):
+            check(bool(np.isfinite(w).all()), "non-finite LibriTTS waveform")
+            check(len(w) == int(np.sum(dur)) * SAMPLES_PER_FRAME,
+                  f"LibriTTS waveform length {len(w)} != sum(pred_dur) * 600")
+        check(launches == launches_per_call,
+              f"mrf_round launched {launches} times, not {launches_per_call}, in one call")
+        audio_s = sum(len(w) for w in wavs) / 24000.0
+        return {"batch": len(wavs), "launches": launches, "wall_s": wall,
+                "audio_s": audio_s, "frames": [int(np.sum(dur)) for dur in durs],
+                "max_abs_wav": max(float(np.abs(w).max()) for w in wavs),
+                "share_abs_wav_over_0.99": float(np.mean(np.abs(np.concatenate(wavs)) > 0.99))}
+
+    request(PHONEMES)                                          # warm call
+    runs = {"batched": request(PHONEMES), "single": request(PHONEMES[2]),
+            "cfg_scale_2": request(PHONEMES[1], embedding_scale=2.0)}
+    if profile:
+        runs["profile_batched"] = profile_request(
+            torch, lambda: eng.style_transfer(PHONEMES, ref_s, diffusion_steps=STEPS))
+    b = runs["batched"]
+    b["audio_s_per_s"] = b["audio_s"] / b["wall_s"]
+    for name, r in runs.items():
+        print(f"serve libritts {name}: {r}", flush=True)
+    print(f"serve libritts: {b['audio_s_per_s']:.2f} audio-s/s (batch {b['batch']}, "
+          f"{b['audio_s']:.3f} s of audio in {b['wall_s']:.6f} s); compute_style "
+          f"{style_ms:.3f} ms; {card}", flush=True)
+
+    # the fused decoder (kernel) against the plain one on the same inputs
+    with torch.inference_mode():
+        tokens, lengths_np = eng.tokenize(PHONEMES)
+        lengths = torch.from_numpy(lengths_np).to(eng.device)
+        gen = torch.Generator(eng.device).manual_seed(SEED)
+        shape = (len(PHONEMES), 1, 2 * mp.style_dim)
+        noise = torch.randn(shape, generator=gen, device=eng.device)
+        step_noise = torch.randn((STEPS - 1, *shape), generator=gen, device=eng.device)
+        t_en, d, s, ref, _, pred_dur = eng._frontend(
+            tokens, lengths, noise, step_noise, STEPS, 1.0, None, 0.0,
+            ref_s.expand(len(PHONEMES), -1), 0.3, 0.7)
+        frames = pred_dur.sum(1).cpu().numpy()
+        t_mel = eng.frame_capacity(int(lengths_np.max()), int(frames.max()))
+        asr, f0, n, fr = eng._decoder_inputs(t_en, d, s, pred_dur, lengths, t_mel)
+        dec = nets["decoder"]
+        K.launches = KA.fwd_launches = 0
+        fused = decoder_apply(dec, asr, f0, n, ref, lengths=fr, fused=True)[:, 0]
+        check(K.launches == launches_per_call,
+              f"fused HiFi-GAN decoder launched mrf_round {K.launches} times")
+        plain = decoder_apply(dec, asr, f0, n, ref, lengths=fr, fused=False)[:, 0]
+        check(KA.fwd_launches > 0 or not on_card,
+              "the unfused HiFi-GAN decoder launched no adain_snake")
+    parity = []
+    for i in range(len(PHONEMES)):
+        m = int(frames[i]) * SAMPLES_PER_FRAME
+        ok, env = parity_envelope(torch, fused[i, :m].float(), plain[i, :m].float())
+        env["max_abs_wav"] = float(plain[i, :m].abs().max())
+        parity.append(env)
+        check(ok, f"fused vs plain HiFi-GAN decoder outside the PARITY envelope: {env}")
+    print(f"serve libritts fused (mrf_round) vs unfused (adain_snake fwd + cuDNN conv) "
+          f"decoder: {parity}", flush=True)
+    del eng, nets, fused, plain
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the demo entry point, as users run it, in this process
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_demo_"))
+    try:
+        ref_wav, out_wav = tmp / "speaker.wav", tmp / "out.wav"
+        wavfile.write(ref_wav, 24000, (clip * 32767).astype(np.int16))
+        K.launches = 0
+        t0 = time.perf_counter()
+        wav = demo.main(["--config", demo_config or str(ROOT / "configs" / "libritts.yml"),
+                         "--phonemes", PHONEMES[3], "--ref_audio", str(ref_wav),
+                         "--alpha", "0.3", "--beta", "0.7", "--out", str(out_wav)]
+                        + ([] if on_card else ["--device", dev]))
+        demo_s = time.perf_counter() - t0
+        check(K.launches == launches_per_call, f"the demo launched mrf_round {K.launches} times")
+        with wave.open(str(out_wav), "rb") as f:
+            params = (f.getnchannels(), f.getsampwidth(), f.getframerate(), f.getnframes())
+        check(params == (1, 2, 24000, len(wav)) and len(wav) > 0
+              and len(wav) % SAMPLES_PER_FRAME == 0,
+              f"the demo's wave file: channels, width, rate, frames {params}, {len(wav)} samples")
+        demo_out = {"wall_s": demo_s, "samples": len(wav), "launches": K.launches,
+                    "wav": params}
+        print(f"serve libritts demo: {demo_out}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"params": n_params, "compute_style_ms": style_ms, "runs": runs,
+            "decoder_parity": parity, "t_mel": t_mel, "demo": demo_out}
 
 
 def phase_train_kernels(torch, KA, KM):
@@ -776,6 +963,31 @@ def phase_train2(torch, KA, KM, K2, profile=False, dev="cuda", mp=None, asr_cfg=
     return out
 
 
+class _DumpFailures(logging.Handler):
+    """Collects the trainers' "sample generation failed" warnings: a dump
+    that raises only warns there, which must not hide a kernel failure."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        if "sample generation failed" in record.getMessage():
+            self.messages.append(record.getMessage())
+
+
+def _check_dumps(logs: Path, what: str, epochs=(0, 1)) -> None:
+    """The sample dump of each epoch: three wave files and the alignment for
+    each of two samples."""
+    for epoch in epochs:
+        dump = logs / "samples" / f"epoch_{epoch:05d}"
+        names = sorted(os.listdir(dump)) if dump.is_dir() else []
+        check(all(f"{i}_{k}" in names for i in (0, 1) for k in ("gt.wav", "rec.wav",
+                                                                "pred.wav"))
+              and all(f"{i}_attn.npy" in names or f"{i}_attn.png" in names for i in (0, 1)),
+              f"{what}: samples of epoch {epoch}: {names}")
+
+
 def _write_corpus(root: Path, n: int, prefix: str, rng, n_short: int, sr: int = 22050):
     """``n`` seeded 16-bit PCM WAVs at ``sr`` Hz under ``root``, half of them
     ``n_short`` samples long and the rest up to 40% longer, and their list
@@ -846,7 +1058,7 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
     from styletts2_tpu_torch import train_stage1
     from styletts2_tpu_torch.config import load_config
     from styletts2_tpu_torch.data import build_dataloader
-    from styletts2_tpu_torch.models.zoo import STAGE1_TMA_NETS, build_nets
+    from styletts2_tpu_torch.models.zoo import STAGE1_SAMPLE_NETS, STAGE1_TMA_NETS, build_nets
     from styletts2_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
     from styletts2_tpu_torch.train.loop import (VAL_STREAM, _bucket, _clip_lengths,
                                                 make_lr_map, seeded_generator, to_device)
@@ -858,6 +1070,8 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
     zero = dict.fromkeys(names, 0)
     want_step = {**zero, "adain_snake_fwd": 48, "adain_snake_bwd": 48, "maximum_path": 1}
     want_val = {**zero, "adain_snake_fwd": 48, "maximum_path": 1}
+    # a validation's log line also counts its sample dump's K1f 96 and K3 1
+    want_val_dump = {**zero, "adain_snake_fwd": 144, "maximum_path": 2}
 
     def counts():
         return dict(zip(names, (KA.fwd_launches, KA.bwd_launches, KM.launches, K2.launches)))
@@ -871,6 +1085,9 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_files_"))
     out = {"clips": list(clips), "n_short": n_short, "sr": 22050}
+    dumps_failed = _DumpFailures()
+    loop_log = logging.getLogger("styletts2_tpu_torch.train.loop")
+    loop_log.addHandler(dumps_failed)
     try:
         rng = np.random.default_rng(SEED)
         spec = yaml.safe_load((ROOT / "configs" / "ljspeech.yml").read_text())
@@ -907,10 +1124,11 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
             t0 = time.perf_counter()
             state = train_stage1.main(args + extra, log_cb=log_cb)
             wall = time.perf_counter() - t0
+            check(not dumps_failed.messages, f"train-files: {dumps_failed.messages}")
             for rec in recs:
                 check(all(np.isfinite(v) for v in rec["metrics"].values()),
                       f"train-files losses at iter {rec['iter']}: {rec['metrics']}")
-                want = (want_val if rec["val"] else want_step) if on_card else zero
+                want = (want_val_dump if rec["val"] else want_step) if on_card else zero
                 check(rec["launches"] == want,
                       f"train-files launches at iter {rec['iter']}: {rec['launches']}")
             # a step's time: from the step before it, in the same epoch, to its metrics
@@ -940,6 +1158,7 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
         for name in ("epoch_1st_00000.npz", "epoch_1st_00001.npz", "first_stage.npz",
                      "metrics.jsonl"):
             check((logs / name).is_file(), f"train-files: {name} not written")
+        _check_dumps(logs, "train-files stage 1")
         check(len((logs / "metrics.jsonl").read_text().splitlines()) == 6,
               "train-files: metrics.jsonl does not hold 4 steps and 2 validations")
         (logs / "epoch_1st_00001.npz").unlink()       # the state first_stage.npz holds too
@@ -986,7 +1205,8 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
             torch.cuda.empty_cache()
 
         # a load of the epoch-0 checkpoint gives its nets and AdamW states exactly
-        nets = build_nets(cfg.model_params, nets=STAGE1_TMA_NETS).to(device)
+        nets = build_nets(cfg.model_params,
+                          nets=STAGE1_TMA_NETS + STAGE1_SAMPLE_NETS).to(device)
         opt = MultiOptimizer(nets, make_lr_map(cfg), default_lr=cfg.optimizer_params.lr)
         _, epoch0, iters0, _ = load_checkpoint(str(logs / "epoch_1st_00000.npz"), nets, opt)
         check((epoch0, iters0) == (1, 2), f"epoch_1st_00000 holds epoch {epoch0}, iters {iters0}")
@@ -1015,7 +1235,9 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
         out.update(first=first, resumed=resumed)
         out["stage2"] = _train_files_stage2(torch, KA, KM, K2, spec, yml, tmp, args, on_card,
                                             rng)
+        check(not dumps_failed.messages, f"train-files stage 2: {dumps_failed.messages}")
     finally:
+        loop_log.removeHandler(dumps_failed)
         os.environ.pop(RANDOM_ENCODERS, None)
         shutil.rmtree(tmp, ignore_errors=True)
         gc.collect()
@@ -1134,13 +1356,7 @@ def _train_files_stage2(torch, KA, KM, K2, spec, yml, tmp, args, on_card, rng):
         meta = json.loads((logs / (name + ".meta.json")).read_text())
         check(math.isfinite(meta["extra"].get("sigma_data", math.nan)),
               f"train-files stage 2: {name} holds no sigma_data: {meta}")
-    for epoch in (0, 1):
-        dump = logs / "samples" / f"epoch_{epoch:05d}"
-        names = sorted(os.listdir(dump)) if dump.is_dir() else []
-        check(all(f"{i}_{k}" in names for i in (0, 1) for k in ("gt.wav", "rec.wav",
-                                                                "pred.wav"))
-              and all(f"{i}_attn.npy" in names or f"{i}_attn.png" in names for i in (0, 1)),
-              f"train-files stage 2: samples of epoch {epoch}: {names}")
+    _check_dumps(logs, "train-files stage 2")
     vals = [r["metrics"] for r in first["log"] if r["kind"] == "val"]
     check(all(set(v) == {"val_mel_loss", "val_dur_loss", "val_F0_loss"} for v in vals),
           f"train-files stage 2 validation: {vals}")
@@ -1239,6 +1455,9 @@ def main() -> None:
     kernel_rows = phase_kernels(torch, K)
     train_kernel_rows = phase_train_kernels(torch, KA, KM)
     serve = phase_serve(torch, K, profile=profile)
+    gc.collect()                          # the LJSpeech nets go before LibriTTS's
+    torch.cuda.empty_cache()
+    serve_libritts = phase_serve_libritts(torch, K, KA, profile=profile, card=card)
     train = phase_train(torch, KA, KM, K, profile=profile, card=card)
     gc.collect()                          # the pre-TMA nets and optimizer go first
     torch.cuda.empty_cache()
@@ -1259,6 +1478,7 @@ def main() -> None:
         "name": "mrf_round", "route": "cuda", "source": "styletts2_tpu_torch/csrc/mrf_round.cu",
         "replaces": "styletts2_tpu/ops/pallas/mrf_round_kernel.py:183",
         "launches": serve["runs"]["batched"]["launches"],
+        "launches_libritts": serve_libritts["runs"]["batched"]["launches"],
         "launches_train_files": files_launches["mrf_round"],
         "max_abs_err": max(r["max_abs_err"] for r in kernel_rows if "max_abs_err" in r),
         "ms": s1["ms"], "device_ms": s1["device_ms"], "plain_ms": s1["plain_ms"], "bound_ms": s1["bound_ms"],
@@ -1299,7 +1519,8 @@ def main() -> None:
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "build_s": build_s, "nvcc_logs": logs, "mrf_round_sass_mma": sass,
          "kernel_checks": kernel_rows,
-         "train_kernel_checks": train_kernel_rows, "serve": serve, "train": train,
+         "train_kernel_checks": train_kernel_rows, "serve": serve,
+         "serve_libritts": serve_libritts, "train": train,
          "train_tma": train_tma, "train2": train2, "train_files": train_files,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -24,8 +24,9 @@
 // hi*hi are accumulated in f32: near-f32 results at a third of the TF32
 // rate, a 46 ms floor for that call.
 //
-// The design.  An implicit GEMM per block of 256 threads (two warpgroups):
-// M = 128 output channels (64 per warpgroup), N = NT frames (64, 128 or 256),
+// The design.  An implicit GEMM per block of two warpgroups (one for narrow
+// stages, below): M = 64 output channels per warpgroup, N = NT frames (64,
+// 128 or 256),
 // reduced over the input channels in chunks of 8 (one k8 step) and over the
 // K taps, all into the same accumulators.
 // - Form: wgmma.mma_async m64nNTk8 TF32, A = the weights from registers,
@@ -56,11 +57,23 @@
 //   all its loads in flight at once, and each warp walks whole rows along t:
 //   bias, coalesced stores of y, and each 64-frame tile's S1 and centred M2
 //   by warp shuffles.
-// - Grid: (T / NT, C_out / 128, B).  NT is the widest of 256, 128 and 64
-//   that still gives at least one block per SM: 256 halves the weight
-//   traffic from L2 (every block streams all C_in x K weights of its 128
+// - Grid: (T / NT, C_out / CO_TILE, B).  NT is the widest of 256, 128 and
+//   64 that still gives at least one block per SM: 256 halves the weight
+//   traffic from L2 (every block streams all C_in x K weights of its
 //   channels), 64 doubles the blocks of the small batch-1 rounds (stage 0 at
 //   frame capacity 200: 126 blocks on 132 SMs).
+// - Narrow stages (the HiFi-GAN's 64 and 32 channels).  A block is WG
+//   warpgroups, CO_TILE = 64 * WG output channels: WG = 2 where C_out is a
+//   multiple of 128, else WG = 1, one warpgroup of 128 threads per 64
+//   channels.  Where C_out is not a multiple of 64 (32), the last block's
+//   missing weight rows are zeros (cp.async zero-fill) and the epilogue
+//   skips their rows: wgmma's M is 64 at the least, so C_out 32 runs twice
+//   the products it needs.  That stage is bound by bytes at
+//   (4, 32, 960000) (10.6 ms of bytes against 9.2 of 3xTF32 products), so
+//   the padding costs at most about the products' time again; swapping the
+//   operands (frames on M, 32 channels on N) would avoid it at the price of
+//   a second operand layout, which this simple form leaves for later.  At
+//   C_in = C_out <= 64 the activation still runs once per element.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,14 +82,14 @@
 
 namespace {
 
-constexpr int THREADS = 256;   // two warpgroups
-constexpr int CO_TILE = 128;   // output channels per block, 64 per warpgroup
 constexpr int CI_CHUNK = 8;    // input channels per stage: one k8 step
 constexpr int MAX_PAD = 32;    // (K*d - d)/2 <= 25 for K <= 11, d <= 5
 constexpr int STAT_TILE = 64;  // frames per tile of the partials
 
-template <int NT, int K>
+template <int NT, int K, int WG>
 struct Tile {
+  static constexpr int THREADS = 128 * WG;          // WG warpgroups
+  static constexpr int CO_TILE = 64 * WG;           // output channels, 64 per warpgroup
   static constexpr int ROW = NT + 2 * MAX_PAD;      // frames of x staged per channel
   static constexpr int RAW_STRIDE = ROW + 4;        // = 4 (mod 32) words
   static constexpr int RAW = CI_CHUNK * RAW_STRIDE;
@@ -98,8 +111,8 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int NT, int K>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int NT, int K, int WG>
+__global__ void __launch_bounds__(128 * WG, 1)
 mrf_round_kernel(const float* __restrict__ x, const float* __restrict__ mean,
                  const float* __restrict__ rstd, const float* __restrict__ gamma,
                  const float* __restrict__ beta, const float* __restrict__ alpha,
@@ -107,7 +120,9 @@ mrf_round_kernel(const float* __restrict__ x, const float* __restrict__ mean,
                  const int* __restrict__ lengths, const float* __restrict__ residual,
                  float* __restrict__ y, float* __restrict__ parts, int c_in, int c_out, int t,
                  int d, int vec_x) {
-  using L = Tile<NT, K>;
+  using L = Tile<NT, K, WG>;
+  constexpr int THREADS = L::THREADS;
+  constexpr int CO_TILE = L::CO_TILE;
   extern __shared__ __align__(128) float smem[];
   float* raw = smem;                  // raw x of the next chunk
   float* stages = smem + L::RAW;      // 2 x (hi/lo planes, weights)
@@ -150,8 +165,9 @@ mrf_round_kernel(const float* __restrict__ x, const float* __restrict__ mean,
       const int row = i >> 1;  // k * CO_TILE + co
       const int co = row % CO_TILE;
       const int kk = row / CO_TILE;
-      const float* src = wt + ((size_t)kk * c_out + co0 + co) * c_in + ci0 + 4 * h;
-      tf32::cp_async16(ws + row * CI_CHUNK + 4 * (h ^ ((co >> 2) & 1)), src, true);
+      const bool ok = co0 + co < c_out;  // rows past C_out (C_out 32) are zeros
+      const float* src = ok ? wt + ((size_t)kk * c_out + co0 + co) * c_in + ci0 + 4 * h : wt;
+      tf32::cp_async16(ws + row * CI_CHUNK + 4 * (h ^ ((co >> 2) & 1)), src, ok);
     }
     tf32::cp_async_commit();
   };
@@ -258,7 +274,8 @@ mrf_round_kernel(const float* __restrict__ x, const float* __restrict__ mean,
       const int i = tid + j * THREADS;
       const int n = i / NT;
       const int tt = t0 + (i - n * NT);
-      rv[j] = tt < t ? __ldg(residual + ((size_t)b * c_out + co0 + n) * t + tt) : 0.f;
+      rv[j] = tt < t && co0 + n < c_out
+                  ? __ldg(residual + ((size_t)b * c_out + co0 + n) * t + tt) : 0.f;
     }
 #pragma unroll
     for (int j = 0; j < PER; ++j) {
@@ -272,7 +289,7 @@ mrf_round_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   // bias, coalesced store; partials over the valid frames of each 64-frame tile
   const int len = min(lengths[b], t);
   const int n_stat = (t + STAT_TILE - 1) / STAT_TILE;
-  for (int n = warp; n < CO_TILE; n += THREADS / 32) {
+  for (int n = warp; n < CO_TILE && co0 + n < c_out; n += THREADS / 32) {
     const int co = co0 + n;
     const float bv = bias[co];
     const size_t row = ((size_t)b * c_out + co) * t;
@@ -315,48 +332,66 @@ struct Args {
   const int* lengths;
   const float* residual;
   float *y, *parts;
-  int batch, c_in, c_out, t, d;
+  int batch, c_in, c_out, t, k, d;
   cudaStream_t stream;
 };
 
 // Above 48 KB of dynamic shared memory a kernel has to ask for it.  Asking
 // also loads the kernel, so the first request that runs it does not.
-template <int NT, int K>
+template <int NT, int K, int WG>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(mrf_round_kernel<NT, K>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize, Tile<NT, K>::BYTES);
+  return cudaFuncSetAttribute(mrf_round_kernel<NT, K, WG>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Tile<NT, K, WG>::BYTES);
 }
 
-cudaError_t allow_smem_all() {
-  const cudaError_t errs[] = {allow_smem<64, 3>(),  allow_smem<64, 7>(),  allow_smem<64, 11>(),
-                              allow_smem<128, 3>(), allow_smem<128, 7>(), allow_smem<128, 11>(),
-                              allow_smem<256, 3>(), allow_smem<256, 7>(), allow_smem<256, 11>()};
+template <int WG>
+cudaError_t allow_smem_wg() {
+  const cudaError_t errs[] = {
+      allow_smem<64, 3, WG>(),  allow_smem<64, 7, WG>(),  allow_smem<64, 11, WG>(),
+      allow_smem<128, 3, WG>(), allow_smem<128, 7, WG>(), allow_smem<128, 11, WG>(),
+      allow_smem<256, 3, WG>(), allow_smem<256, 7, WG>(), allow_smem<256, 11, WG>()};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return e;
   return cudaSuccess;
 }
 
-template <int NT, int K>
+cudaError_t allow_smem_all() {
+  const cudaError_t e = allow_smem_wg<1>();
+  return e != cudaSuccess ? e : allow_smem_wg<2>();
+}
+
+template <int NT, int K, int WG>
 int launch(const Args& a) {
-  using L = Tile<NT, K>;
+  using L = Tile<NT, K, WG>;
   const int vec_x = (a.t % 4 == 0) && (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
-  const dim3 grid((a.t + NT - 1) / NT, a.c_out / CO_TILE, a.batch);
-  mrf_round_kernel<NT, K><<<grid, THREADS, L::BYTES, a.stream>>>(
+  const dim3 grid((a.t + NT - 1) / NT, (a.c_out + L::CO_TILE - 1) / L::CO_TILE, a.batch);
+  mrf_round_kernel<NT, K, WG><<<grid, L::THREADS, L::BYTES, a.stream>>>(
       a.x, a.mean, a.rstd, a.gamma, a.beta, a.alpha, a.wt, a.bias, a.lengths, a.residual, a.y,
       a.parts, a.c_in, a.c_out, a.t, a.d, vec_x);
   return (int)cudaGetLastError();
 }
 
-template <int NT>
-int launch_k(const Args& a, int k) {
-  switch (k) {
+template <int NT, int WG>
+int launch_k(const Args& a) {
+  switch (a.k) {
     case 3:
-      return launch<NT, 3>(a);
+      return launch<NT, 3, WG>(a);
     case 7:
-      return launch<NT, 7>(a);
+      return launch<NT, 7, WG>(a);
     default:
-      return launch<NT, 11>(a);
+      return launch<NT, 11, WG>(a);
   }
+}
+
+// NT: the widest frame tile that still gives every SM a block.
+template <int WG>
+int launch_nt(const Args& a, int sms) {
+  const long long tiles =  // blocks per T-tile column
+      (long long)((a.c_out + 64 * WG - 1) / (64 * WG)) * a.batch;
+  if ((a.t + 255) / 256 * tiles >= sms) return launch_k<256, WG>(a);
+  if ((a.t + 127) / 128 * tiles >= sms) return launch_k<128, WG>(a);
+  return launch_k<64, WG>(a);
 }
 
 }  // namespace
@@ -369,15 +404,16 @@ int mrf_round_t_tile() { return STAT_TILE; }
 // Launches one round on `stream` and returns a cudaError_t (0 = launched).
 // wt is the effective kernel re-laid as (K, C_out, C_in); `residual` may be
 // null.  All tensors are contiguous f32 except lengths (i32); wt is 16-byte
-// aligned; C_in % 8 == 0 and C_out % 128 == 0.
+// aligned; C_in % 8 == 0 and C_out % 32 == 0 (blocks of 128 output channels
+// where C_out % 128 == 0, else of 64).
 int mrf_round_f32(const float* x, const float* mean, const float* rstd,
                   const float* gamma, const float* beta, const float* alpha,
                   const float* wt, const float* bias, const int* lengths,
                   const float* residual, float* y, float* parts, int batch, int c_in,
                   int c_out, int t, int k, int d, int device, void* stream) {
   if ((k != 3 && k != 7 && k != 11) || d < 1 || (k * d - d) / 2 > MAX_PAD || batch < 1 ||
-      batch > 65535 || t < 1 || c_in < CI_CHUNK || c_in % CI_CHUNK != 0 || c_out < CO_TILE ||
-      c_out % CO_TILE != 0 || reinterpret_cast<uintptr_t>(wt) % 16 != 0)
+      batch > 65535 || t < 1 || c_in < CI_CHUNK || c_in % CI_CHUNK != 0 || c_out < 32 ||
+      c_out % 32 != 0 || reinterpret_cast<uintptr_t>(wt) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -392,11 +428,8 @@ int mrf_round_f32(const float* x, const float* mean, const float* rstd,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const Args a{x, mean, rstd, gamma, beta, alpha, wt, bias, lengths, residual, y, parts,
-               batch, c_in, c_out, t, d, static_cast<cudaStream_t>(stream)};
-  const long long tiles = (long long)(c_out / CO_TILE) * batch;  // blocks per T-tile column
-  if ((t + 255) / 256 * tiles >= sms) return launch_k<256>(a, k);
-  if ((t + 127) / 128 * tiles >= sms) return launch_k<128>(a, k);
-  return launch_k<64>(a, k);
+               batch, c_in, c_out, t, k, d, static_cast<cudaStream_t>(stream)};
+  return c_out % 128 == 0 ? launch_nt<2>(a, sms) : launch_nt<1>(a, sms);
 }
 
 }  // extern "C"

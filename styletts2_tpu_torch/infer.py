@@ -1,13 +1,16 @@
-"""Inference engine — the LJSpeech demo-notebook API
-(Demo/Inference_LJSpeech.ipynb cells 17 and 29) on the GPU.
+"""Inference engine — the demo-notebook API (Demo/Inference_LJSpeech.ipynb
+cells 17 and 29, Demo/Inference_LibriTTS.ipynb cells 5, 16 and 45) on the
+GPU.
 
 Two stages, as in the JAX package's engine:
 
-1. frontend: tokens -> text/PL-BERT encodings, ADPM2 style sampling,
-   duration prediction, at a token capacity rounded up to ``token_bucket``;
-2. synthesis: hard alignment -> F0/N -> the iSTFTNet decoder, whose MRF
-   resblocks run through the fused round kernel, at a frame capacity chosen
-   by the JAX engine's rule.
+1. frontend: tokens -> text/PL-BERT encodings, ADPM2 style sampling (for a
+   multispeaker model conditioned on a reference style ``ref_s`` and mixed
+   with it by alpha/beta), duration prediction, at a token capacity rounded
+   up to ``token_bucket``;
+2. synthesis: hard alignment -> F0/N -> the iSTFTNet or HiFi-GAN decoder,
+   whose MRF resblocks run through the fused round kernel, at a frame
+   capacity chosen by the JAX engine's rule.
 
 PyTorch runs eagerly, so the engine reads ``pred_dur`` before it picks the
 frame capacity and runs the decoder once; the JAX engine launches a
@@ -24,12 +27,14 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .audio.mel import DATASET_MEL, log_mel_spectrogram
 from .config import ModelParams
-from .models.decoder.istftnet import decoder_apply
+from .models.decoder import hifigan, istftnet
 from .models.diffusion import sampler as S
 from .models.diffusion.denoiser import denoiser_cfg_apply
 from .models.plbert import PLBertConfig, grown_position_table, plbert_apply
 from .models.predictor import duration_encoder_apply, predict_durations, prosody_f0n_apply
+from .models.style_encoder import style_encoder_apply
 from .models.text_encoder import text_encoder_apply
 from .nn.linear import linear
 from .ops.alignment import hard_alignment
@@ -54,7 +59,10 @@ def resolve_device(device=None) -> torch.device:
 
 class InferenceEngine:
     """Phoneme strings -> 24 kHz waveforms with the port's nets
-    (``models.zoo.build_nets``), moved to ``device`` (default: the GPU)."""
+    (``models.zoo.build_nets``), moved to ``device`` (default: the GPU).
+    A multispeaker model needs a reference style ``ref_s`` per request
+    (``compute_style``), and ``compute_style`` needs the nets'
+    ``style_encoder`` and ``predictor_encoder``."""
 
     def __init__(self, nets: torch.nn.ModuleDict, model_params: ModelParams,
                  plbert_cfg: PLBertConfig = PLBertConfig(), sigma_data: float = 0.2,
@@ -64,6 +72,8 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.nets = nets.to(self.device).eval()
         self.model_params = model_params
+        self._decoder_apply = (hifigan if model_params.decoder.type == "hifigan"
+                               else istftnet).decoder_apply
         self.plbert_cfg = plbert_cfg
         self.sigma_data = sigma_data
         self.token_bucket = token_bucket
@@ -103,7 +113,11 @@ class InferenceEngine:
         return spec if max_frames <= spec else _round_up(max_frames, self.frame_bucket)
 
     def _frontend(self, tokens, lengths, noise, step_noise, num_steps,
-                  embedding_scale, s_prev, prev_blend):
+                  embedding_scale, s_prev, prev_blend, ref_s=None, alpha=0.3, beta=0.7):
+        """``ref_s`` (B, 2*style_dim): the reference style; a multispeaker
+        denoiser takes it as its features, and the sampled style is mixed
+        with it, ``alpha`` for the acoustic half and ``beta`` for the
+        prosodic one (Demo/Inference_LibriTTS.ipynb cell 16)."""
         nets, mp = self.nets, self.model_params
         mask = torch.arange(tokens.shape[1], device=self.device)[None, :] < lengths[:, None]
         t_en = text_encoder_apply(nets["text_encoder"], tokens, lengths)
@@ -114,9 +128,12 @@ class InferenceEngine:
 
         transformer = nets["diffusion"]["transformer"]
 
+        features = ref_s if mp.multispeaker else None
+
         def net(x, c_noise):
             return denoiser_cfg_apply(transformer, x, c_noise, bert_dur,
-                                      embedding_scale=embedding_scale, mask=mask)
+                                      embedding_scale=embedding_scale, mask=mask,
+                                      features=features)
 
         sigmas = S.karras_schedule(num_steps, device=self.device)
         # the reference samples styles unclamped (demo cell 14)
@@ -125,9 +142,12 @@ class InferenceEngine:
         if s_prev is not None and prev_blend > 0:
             s_pred = prev_blend * s_prev + (1 - prev_blend) * s_pred
         s, ref = s_pred[:, mp.style_dim:], s_pred[:, : mp.style_dim]
+        if ref_s is not None:
+            ref = alpha * ref + (1 - alpha) * ref_s[:, : mp.style_dim]
+            s = beta * s + (1 - beta) * ref_s[:, mp.style_dim:]
         d = duration_encoder_apply(nets["predictor"].text_encoder, d_en, s, lengths)
         pred_dur = predict_durations(nets["predictor"], d, lengths, self.last_token_pad)
-        return t_en, d, s, ref, s_pred, pred_dur
+        return t_en, d, s, ref, torch.cat([ref, s], dim=-1), pred_dur
 
     def _decoder_inputs(self, t_en, d, s, pred_dur, lengths, t_mel):
         """Hard alignment and F0/N: (asr, f0, n, frames) at ``t_mel`` frames."""
@@ -136,6 +156,10 @@ class InferenceEngine:
         aln = hard_alignment(pred_dur, t_mel, token_mask)
         en = torch.matmul(d.transpose(1, 2), aln)
         asr = torch.matmul(t_en, aln)
+        if self.model_params.decoder.type == "hifigan":
+            # one-frame right shift (Demo/Inference_LibriTTS.ipynb cell 16)
+            en = torch.cat([en[..., :1], en[..., :-1]], dim=-1)
+            asr = torch.cat([asr[..., :1], asr[..., :-1]], dim=-1)
         frames = pred_dur.sum(dim=1)
         f0, n = prosody_f0n_apply(self.nets["predictor"], en, s, lengths=frames)
         return asr, f0, n, frames
@@ -148,8 +172,8 @@ class InferenceEngine:
                 raise ValueError(f"source_noise {tuple(source_noise.shape)} needs batch "
                                  f"{t_en.shape[0]} and at least {need} samples")
             source_noise = source_noise[..., :need].to(self.device)
-        wav = decoder_apply(self.nets["decoder"], asr, f0, n, ref, lengths=frames,
-                            fused=True, source_noise=source_noise)
+        wav = self._decoder_apply(self.nets["decoder"], asr, f0, n, ref, lengths=frames,
+                                  fused=True, source_noise=source_noise)
         return wav[:, 0, :]
 
     @torch.inference_mode()
@@ -161,9 +185,16 @@ class InferenceEngine:
                    s_prev: Optional[torch.Tensor] = None, prev_blend: float = 0.0,
                    return_styles: bool = False,
                    return_durations: bool = False,
-                   source_noise: Optional[torch.Tensor] = None):
+                   source_noise: Optional[torch.Tensor] = None,
+                   ref_s: Optional[torch.Tensor] = None, alpha: float = 0.3,
+                   beta: float = 0.7):
         """Phoneme string(s) -> waveform(s) (24 kHz numpy, trimmed to each
         sample's ``sum(pred_dur) * 600`` samples).
+
+        ``ref_s`` (B or 1, 2*style_dim), e.g. from ``compute_style``: the
+        reference style, mixed in by ``alpha`` (acoustic) and ``beta``
+        (prosodic); a batch of one serves every request.  A multispeaker
+        model needs it.
 
         ``noise`` (B, 1, 2*style_dim) is the diffusion's initial noise and
         ``step_noise`` (steps-1, B, 1, 2*style_dim) each ADPM2 step's; either
@@ -189,10 +220,16 @@ class InferenceEngine:
         step_noise = step_noise.to(self.device, torch.float32)
         if s_prev is not None:
             s_prev = s_prev.to(self.device, torch.float32)
+        if ref_s is not None:
+            ref_s = torch.as_tensor(ref_s, dtype=torch.float32, device=self.device)
+            ref_s = ref_s.reshape(-1, shape[-1]).expand(b, -1)
+        elif self.model_params.multispeaker:
+            raise ValueError("a multispeaker model synthesizes from a reference style: pass "
+                             "ref_s (compute_style of a reference clip)")
 
         t_en, d, s, ref, s_out, pred_dur = self._frontend(
             tokens, lengths, noise, step_noise, diffusion_steps, embedding_scale,
-            s_prev, prev_blend)
+            s_prev, prev_blend, ref_s, alpha, beta)
         pred_dur_np = pred_dur.cpu().numpy()
         frames = pred_dur_np.sum(axis=1)
         t_mel = self.frame_capacity(int(lengths_np.max()), int(frames.max()))
@@ -208,6 +245,25 @@ class InferenceEngine:
         if return_durations:
             extras.append(pred_dur_np[0, : lengths_np[0]] if single else pred_dur_np)
         return (result, *extras) if extras else result
+
+    @torch.inference_mode()
+    def compute_style(self, wave_24k) -> torch.Tensor:
+        """A 24 kHz reference clip (T,) -> its style (1, 2*style_dim) on the
+        device: ``concat(style_encoder(mel), predictor_encoder(mel))`` of the
+        dataset log-mel (Demo/Inference_LibriTTS.ipynb cell 5)."""
+        missing = [n for n in ("style_encoder", "predictor_encoder") if n not in self.nets]
+        if missing:
+            raise ValueError(f"compute_style needs the nets {missing}: build them "
+                             "(models.zoo.STYLE_INFERENCE_NETS)")
+        wave = torch.as_tensor(np.asarray(wave_24k, np.float32), device=self.device)
+        mel = log_mel_spectrogram(wave.reshape(1, -1), DATASET_MEL)[:, None]
+        return torch.cat([style_encoder_apply(self.nets["style_encoder"], mel),
+                          style_encoder_apply(self.nets["predictor_encoder"], mel)], dim=-1)
+
+    def style_transfer(self, phonemes, ref_s, alpha: float = 0.3, beta: float = 0.7, **kw):
+        """Synthesize the text with the reference speaker's style mixed in
+        (Demo/Inference_LibriTTS.ipynb cell 45)."""
+        return self.synthesize(phonemes, ref_s=ref_s, alpha=alpha, beta=beta, **kw)
 
     def long_form(self, sentences: Sequence[str], t: float = 0.7,
                   generator: Optional[torch.Generator] = None, **kw) -> np.ndarray:

@@ -16,7 +16,8 @@ zeroed: only the statistics are masked.
 ``mrf_round`` takes a tensor on the CPU to ``mrf_round_plain`` and a CUDA
 tensor to the kernel, which runs the conv on the tensor cores (wgmma) in
 3xTF32, f32-accurate, and takes C_in a multiple of 8 and C_out a multiple of
-128; anything else raises.  ``launches`` counts kernel launches.  Inference
+32 (the generators' stages have 256 down to 32 channels); anything else
+raises.  ``launches`` counts kernel launches.  Inference
 only: there is no backward.
 """
 
@@ -35,7 +36,7 @@ EPS = 1e-5
 T_TILE = 64             # frames per tile of the partials; equals the kernel's
 KERNEL_SIZES = (3, 7, 11)
 MAX_PAD = 32            # the kernel's halo room: (k*d - d) // 2 <= MAX_PAD
-CI_MULTIPLE, CO_MULTIPLE = 8, 128   # the kernel's chunk of C_in and block of C_out
+CI_MULTIPLE, CO_MULTIPLE = 8, 32    # the kernel's chunk of C_in; C_out's step
 
 launches = 0
 

@@ -60,6 +60,13 @@ class Generator(nn.Module):
         self.conv_post = cm.WNConv1d(init_ch // (2 ** len(rates)), n_fft + 2, 7)
 
 
+def fit_length(x: torch.Tensor, t: int) -> torch.Tensor:
+    """x cropped or zero-padded to ``t`` frames (the source branch against
+    the upsampled signal's, possibly off-by-one, length)."""
+    x = x[..., :t]
+    return nn.functional.pad(x, (0, t - x.shape[-1])) if x.shape[-1] < t else x
+
+
 def _stage_lengths(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Tensor:
     b, _, t = x.shape
     if lengths is None:
@@ -67,17 +74,39 @@ def _stage_lengths(x: torch.Tensor, lengths: Optional[torch.Tensor]) -> torch.Te
     return torch.clamp(lengths, max=t).to(torch.int32)
 
 
-def _mrf_stage_fused(m: Generator, x, s, stage: int, lengths) -> torch.Tensor:
-    """All MRF resblocks of one stage through the fused round: one stats
-    reduction shared by the stage's resblocks, chained stats inside each."""
+def mrf_stage(m: nn.Module, x, s, stage: int, lengths, fused: bool) -> torch.Tensor:
+    """The mean of stage ``stage``'s MRF resblocks (``m.resblocks``) over x.
+    Fused: through the fused round, one stats reduction shared by the
+    stage's resblocks and chained stats inside each."""
     nk = len(m.cfg.resblock_kernel_sizes)
-    lens = _stage_lengths(x, lengths)
-    stats = masked_stats(x, lens)
+    blocks = m.resblocks[stage * nk:(stage + 1) * nk]
+    if fused:
+        lens = _stage_lengths(x, lengths)
+        stats = masked_stats(x, lens)
     xs = None
-    for j in range(nk):
-        r, _ = adain_resblock1_fused(m.resblocks[stage * nk + j], x, s, lens, stats=stats)
+    for blk in blocks:
+        r = (adain_resblock1_fused(blk, x, s, lens, stats=stats)[0] if fused
+             else adain_resblock1_apply(blk, x, s, lengths))
         xs = r if xs is None else xs + r
     return xs / nk
+
+
+def source_branch(m: nn.Module, har: torch.Tensor, s: torch.Tensor, stage: int,
+                  lengths, fused: bool) -> torch.Tensor:
+    """Stage ``stage``'s harmonic-source branch: ``m.noise_convs`` (strided to
+    the stage's rate, kernel 1 at the last stage), then ``m.noise_res``."""
+    rates = m.cfg.upsample_rates
+    nc = m.noise_convs[stage]
+    if stage + 1 < len(rates):
+        stride_f0 = math.prod(rates[stage + 1:])
+        x_source = conv1d(har, nc.weight, nc.bias, stride=stride_f0,
+                          padding=(stride_f0 + 1) // 2)
+    else:
+        x_source = conv1d(har, nc.weight, nc.bias)
+    if fused:
+        return adain_resblock1_fused(m.noise_res[stage], x_source, s,
+                                     _stage_lengths(x_source, lengths))[0]
+    return adain_resblock1_apply(m.noise_res[stage], x_source, s, lengths)
 
 
 def generator_apply(m: Generator, x: torch.Tensor, s: torch.Tensor, f0: torch.Tensor,
@@ -89,7 +118,6 @@ def generator_apply(m: Generator, x: torch.Tensor, s: torch.Tensor, f0: torch.Te
     cfg = m.cfg
     rates = cfg.upsample_rates
     n_fft, hop = cfg.gen_istft_n_fft, cfg.gen_istft_hop_size
-    nk = len(cfg.resblock_kernel_sizes)
 
     # the harmonic source is a constant, as in the reference (no_grad)
     har = source_module_apply_mel(m.m_source, f0, math.prod(rates) * hop,
@@ -99,36 +127,14 @@ def generator_apply(m: Generator, x: torch.Tensor, s: torch.Tensor, f0: torch.Te
 
     for i in range(len(rates)):
         x = leaky_relu(x, 0.1)
-        nc = m.noise_convs[i]
-        if i + 1 < len(rates):
-            stride_f0 = math.prod(rates[i + 1:])
-            x_source = conv1d(har, nc.weight, nc.bias, stride=stride_f0,
-                              padding=(stride_f0 + 1) // 2)
-        else:
-            x_source = conv1d(har, nc.weight, nc.bias)
         stage_lengths = None if lengths is None else lengths * math.prod(rates[: i + 1])
-        if fused:
-            x_source, _ = adain_resblock1_fused(m.noise_res[i], x_source, s,
-                                                _stage_lengths(x_source, stage_lengths))
-        else:
-            x_source = adain_resblock1_apply(m.noise_res[i], x_source, s, stage_lengths)
+        x_source = source_branch(m, har, s, i, stage_lengths, fused)
         up = m.ups[i]
         u, k = rates[i], cfg.upsample_kernel_sizes[i]
         x = conv_transpose1d(x, up.weight(), up.bias, stride=u, padding=(k - u) // 2)
         if i == len(rates) - 1:
             x = torch.cat([x[..., 1:2], x], dim=-1)            # reflection pad (1, 0)
-        x_source = x_source[..., : x.shape[-1]]
-        if x_source.shape[-1] < x.shape[-1]:
-            x_source = nn.functional.pad(x_source, (0, x.shape[-1] - x_source.shape[-1]))
-        x = x + x_source
-        if fused:
-            x = _mrf_stage_fused(m, x, s, i, stage_lengths)
-        else:
-            xs = None
-            for j in range(nk):
-                r = adain_resblock1_apply(m.resblocks[i * nk + j], x, s, stage_lengths)
-                xs = r if xs is None else xs + r
-            x = xs / nk
+        x = mrf_stage(m, x + fit_length(x_source, x.shape[-1]), s, i, stage_lengths, fused)
 
     x = leaky_relu(x, 0.01)
     x = cm.wn_conv1d(m.conv_post, x, padding=3)
@@ -139,7 +145,10 @@ def generator_apply(m: Generator, x: torch.Tensor, s: torch.Tensor, f0: torch.Te
 
 class Decoder(nn.Module):
     """``width``/``asr_res_ch`` default to the reference's 1024/64 channel
-    plan; smaller values are for tests."""
+    plan; smaller values are for tests.  The AdainResBlk1d head is the
+    HiFi-GAN decoder's too (``hifigan.Decoder`` sets ``generator_cls``)."""
+
+    generator_cls = Generator
 
     def __init__(self, cfg: DecoderConfig, dim_in: int = 512, style_dim: int = 128,
                  width: int = 1024, asr_res_ch: int = 64):
@@ -153,7 +162,7 @@ class Decoder(nn.Module):
         self.F0_conv = cm.WNConv1d(1, 1, 3)
         self.N_conv = cm.WNConv1d(1, 1, 3)
         self.asr_res = nn.ModuleList([cm.WNConv1d(dim_in, asr_res_ch, 1)])
-        self.generator = Generator(cfg, style_dim)
+        self.generator = self.generator_cls(cfg, style_dim)
 
 
 F0_SMOOTH = (0, 3, 7)
@@ -175,15 +184,17 @@ def random_smooth(curve: torch.Tensor, index: torch.Tensor,
     return torch.stack(outs)[index]
 
 
-def decoder_apply(m: Decoder, asr: torch.Tensor, f0_curve: torch.Tensor,
-                  n_curve: torch.Tensor, s: torch.Tensor,
-                  lengths: Optional[torch.Tensor] = None, fused: bool = False,
-                  source_noise: Optional[torch.Tensor] = None,
-                  smooth: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
-    """asr (B, C, T_en) aligned text features, f0/n curves (B, 2*T_en),
-    s (B, S), lengths (B,) valid T_en frames -> waveform (B, 1, T_samples)
-    (ref: Modules/istftnet.py:498-527).  ``smooth`` (training): the indices
-    into ``F0_SMOOTH`` and ``N_SMOOTH`` of the curves' smoothing widths."""
+def decoder_head(m: Decoder, asr: torch.Tensor, f0_curve: torch.Tensor,
+                 n_curve: torch.Tensor, s: torch.Tensor,
+                 lengths: Optional[torch.Tensor] = None, fused: bool = False,
+                 smooth: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """The AdainResBlk1d encode/decode stack of both decoders
+    (ref: Modules/istftnet.py:498-524, Modules/hifigan.py:445-471): asr
+    (B, C, T_en) aligned text features, f0/n curves (B, 2*T_en), s (B, S),
+    lengths (B,) valid T_en frames -> (the generator's input (B, width/2,
+    2*T_en), s, the F0 curve), cast to the decoder's dtype.  ``smooth``
+    (training): the indices into ``F0_SMOOTH`` and ``N_SMOOTH`` of the
+    curves' smoothing widths."""
     asr, f0_curve, n_curve, s = cm.autocast(m, asr, f0_curve, n_curve, s)
     if smooth is not None:
         if fused:
@@ -202,6 +213,17 @@ def decoder_apply(m: Decoder, asr: torch.Tensor, f0_curve: torch.Tensor,
         x = adain_resblk1d_apply(blk, x, s, lengths)
         if blk.upsample:
             res = False
+    return x, s, f0_curve
+
+
+def decoder_apply(m: Decoder, asr: torch.Tensor, f0_curve: torch.Tensor,
+                  n_curve: torch.Tensor, s: torch.Tensor,
+                  lengths: Optional[torch.Tensor] = None, fused: bool = False,
+                  source_noise: Optional[torch.Tensor] = None,
+                  smooth: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """``decoder_head`` then the iSTFTNet generator -> waveform
+    (B, 1, T_samples) (ref: Modules/istftnet.py:498-527)."""
+    x, s, f0_curve = decoder_head(m, asr, f0_curve, n_curve, s, lengths, fused, smooth)
     return generator_apply(m.generator, x, s, f0_curve,
                            lengths=None if lengths is None else lengths * 2,
                            fused=fused, source_noise=source_noise)

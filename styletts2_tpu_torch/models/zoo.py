@@ -1,7 +1,9 @@
-"""The nets of the LJSpeech zoo (ref: models.py:1002-1110): the inference
-nets, stage 1's aligner, pitch extractor and style encoder, its TMA phase's
-discriminators and Whisper encoder, and stage 2's prosody style encoder
-(``predictor_encoder``) and Whisper discriminator (``wd``); the reference's initialisation
+"""The nets of the LJSpeech and LibriTTS zoos (ref: models.py:1002-1110):
+the inference nets (a multispeaker config's with the style-conditioned
+denoiser, a HiFi-GAN config's with that decoder), stage 1's aligner, pitch
+extractor and style encoder, its TMA phase's discriminators and Whisper
+encoder, and stage 2's prosody style encoder (``predictor_encoder``) and
+Whisper discriminator (``wd``); the reference's initialisation
 (``init_reference_``) and the bench's seeded random one (``init_random_``);
 and the bridge from the JAX package's parameter trees.
 
@@ -25,7 +27,7 @@ from ..config import ModelParams
 from ..nn import init as tinit
 from .asr import ASRCNN, ASRConfig
 from .common import ChannelLayerNorm, SNConv2d
-from .decoder.istftnet import Decoder
+from .decoder import hifigan, istftnet
 from .diffusion.denoiser import Denoiser
 from .discriminators import (MPD_CHANNELS, MultiPeriodDiscriminator, MultiResSpecDiscriminator,
                              WhisperDiscriminator)
@@ -39,11 +41,18 @@ from .whisper import WhisperConfig, WhisperEncoder
 
 INFERENCE_NETS = ("bert", "bert_encoder", "predictor", "decoder", "text_encoder",
                   "diffusion")
+# and the two style encoders of ``InferenceEngine.compute_style``: a
+# multispeaker model's default
+STYLE_INFERENCE_NETS = INFERENCE_NETS + ("style_encoder", "predictor_encoder")
 # stage 1 before TMA: the trained text encoder, style encoder and decoder,
 # and the frozen aligner and pitch extractor
 STAGE1_NETS = ("text_encoder", "style_encoder", "decoder", "text_aligner", "pitch_extractor")
 # stage 1 from TMA on: the discriminators and the frozen Whisper encoder too
 STAGE1_TMA_NETS = STAGE1_NETS + ("mpd", "msd", "slm_encoder")
+# what stage 1's sample dump reads beyond them, frozen and never stepped
+# there (the JAX stage-1 zoo holds all 13 nets): ``train_stage1`` builds
+# them and saves them in its checkpoints for stage 2
+STAGE1_SAMPLE_NETS = ("bert", "bert_encoder", "predictor", "predictor_encoder")
 # stage 2: every net of configs/ljspeech.yml, the JAX zoo's 13 and the
 # Whisper encoder
 STAGE2_NETS = INFERENCE_NETS + ("predictor_encoder", "style_encoder", "text_aligner",
@@ -52,20 +61,26 @@ STAGE2_NETS = INFERENCE_NETS + ("predictor_encoder", "style_encoder", "text_alig
 
 def build_nets(mp: ModelParams, plbert_cfg: PLBertConfig = PLBertConfig(),
                decoder_width: Optional[int] = None, decoder_asr_res_ch: int = 64,
-               nets: Sequence[str] = INFERENCE_NETS, asr_cfg: Optional[ASRConfig] = None,
+               nets: Optional[Sequence[str]] = None, asr_cfg: Optional[ASRConfig] = None,
                jdc_cfg: JDCConfig = JDCConfig(),
                whisper_cfg: WhisperConfig = WhisperConfig(),
                mpd_channels: Sequence[int] = MPD_CHANNELS, msd_width: int = 32
                ) -> nn.ModuleDict:
-    """The named nets of the single-speaker zoo with placeholder parameters
-    (fill them with ``init_reference_``, ``init_random_`` or
-    ``load_jax_params``).  ``decoder_width`` defaults to twice the
-    generator's ``upsample_initial_channel``: the reference's 1024 over 512
-    (Modules/istftnet.py).  ``asr_cfg`` defaults to
+    """The named nets of the zoo with placeholder parameters (fill them with
+    ``init_reference_``, ``init_random_`` or ``load_jax_params``); ``nets``
+    defaults to ``STYLE_INFERENCE_NETS`` for a multispeaker config, else
+    ``INFERENCE_NETS``.  The decoder is ``mp.decoder.type``'s (iSTFTNet or
+    HiFi-GAN); a multispeaker config's denoiser is the ``StyleTransformer1d``.
+    ``decoder_width`` defaults to twice the generator's
+    ``upsample_initial_channel``: the reference's 1024 over 512
+    (Modules/istftnet.py, Modules/hifigan.py).  ``asr_cfg`` defaults to
     ``ASRConfig(n_token=mp.n_token)``; ``whisper_cfg`` sizes the
     ``slm_encoder`` (Whisper-base by default)."""
-    if mp.multispeaker or mp.decoder.type != "istftnet":
-        raise NotImplementedError("the port builds the single-speaker iSTFTNet zoo only")
+    if mp.decoder.type not in ("istftnet", "hifigan"):
+        raise NotImplementedError(f"no decoder of type {mp.decoder.type!r}")
+    if nets is None:
+        nets = STYLE_INFERENCE_NETS if mp.multispeaker else INFERENCE_NETS
+    decoder_cls = istftnet.Decoder if mp.decoder.type == "istftnet" else hifigan.Decoder
     tr = mp.diffusion.transformer
     decoder_width = decoder_width or 2 * mp.decoder.upsample_initial_channel
     makers = {
@@ -73,14 +88,15 @@ def build_nets(mp: ModelParams, plbert_cfg: PLBertConfig = PLBertConfig(),
         "bert_encoder": lambda: nn.Linear(plbert_cfg.hidden_size, mp.hidden_dim),
         "predictor": lambda: ProsodyPredictor(mp.style_dim, mp.hidden_dim, mp.n_layer,
                                               mp.max_dur),
-        "decoder": lambda: Decoder(mp.decoder, mp.hidden_dim, mp.style_dim, decoder_width,
-                                   decoder_asr_res_ch),
+        "decoder": lambda: decoder_cls(mp.decoder, mp.hidden_dim, mp.style_dim, decoder_width,
+                                       decoder_asr_res_ch),
         "text_encoder": lambda: TextEncoder(mp.n_token, mp.hidden_dim, 5, mp.n_layer),
         "diffusion": lambda: nn.ModuleDict({"transformer": Denoiser(
             channels=mp.style_dim * 2, context_embedding_features=plbert_cfg.hidden_size,
             num_layers=tr.num_layers, num_heads=tr.num_heads,
             head_features=tr.head_features, multiplier=tr.multiplier,
-            embedding_max_length=plbert_cfg.max_position_embeddings)}),
+            embedding_max_length=plbert_cfg.max_position_embeddings,
+            style_dim=mp.style_dim * 2 if mp.multispeaker else None)}),
         "style_encoder": lambda: StyleEncoder(mp.dim_in, mp.style_dim, mp.hidden_dim),
         "predictor_encoder": lambda: StyleEncoder(mp.dim_in, mp.style_dim, mp.hidden_dim),
         "text_aligner": lambda: ASRCNN(asr_cfg or ASRConfig(n_token=mp.n_token)),
@@ -145,8 +161,8 @@ def _init_module_(net: str, prefix: str, module: nn.Module, root: nn.Module,
     elif isinstance(module, _NORMS):
         for name, t in own.items():
             t.fill_(1.0 if name in ("weight", "gamma", "running_var") else 0.0)
-    elif isinstance(module, nn.ParameterList) and re.search(r"(^|\.)alpha[12]$", prefix):
-        for t in own.values():                  # Snake alphas (resblock.py:38-39)
+    elif isinstance(module, nn.ParameterList) and re.search(r"(^|\.)alpha(s|[12])$", prefix):
+        for t in own.values():                  # Snake alphas (resblock.py:38-39, hifigan.py:48)
             t.fill_(1.0)
     elif isinstance(module, _LearnedPositional):
         tinit.normal_(own["weights"], generator)

@@ -125,10 +125,11 @@ def run_stage1(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
     ``resume_from``: a checkpoint whose nets, AdamW states, ``epoch`` and
     ``iters`` the run continues from.  After each epoch: validation on
     ``val_loader`` (``val_mel_loss`` to ``log_cb``), and every
-    ``cfg.save_freq`` epochs a checkpoint ``epoch_1st_{epoch:05d}.npz`` in
-    ``cfg.log_dir`` holding the next epoch to run; at the end, one to
-    ``cfg.first_stage_path`` there.  A run cut by ``max_steps`` saves
-    nothing.
+    ``cfg.save_freq`` epochs a sample dump (which also reads the frozen
+    ``models.zoo.STAGE1_SAMPLE_NETS``, as ``train_stage1`` builds them) and
+    a checkpoint ``epoch_1st_{epoch:05d}.npz`` in ``cfg.log_dir`` holding
+    the next epoch to run; at the end, one to ``cfg.first_stage_path``
+    there.  A run cut by ``max_steps`` saves nothing.
     """
     dev = _device(device)
     nets.to(dev)
@@ -268,9 +269,11 @@ def _run_validation(cfg: Config, configs: Dict, state: TrainState, val_loader, e
     """The mean of the stage's validation losses over ``val_loader(epoch)``
     (ref: train_first.py:457-545, train_second.py:949-1068), logged as
     ``val_*`` at ``state.iters``; the clip starts come from a generator
-    seeded by ``(seed, epoch)``.  In stage 2, every ``cfg.save_freq``
-    epochs, the samples of the first batch are written under
-    ``<log_dir>/samples/epoch_<epoch>`` (``train.samples``)."""
+    seeded by ``(seed, epoch)``.  Every ``cfg.save_freq`` epochs the
+    samples of the first batch are written under
+    ``<log_dir>/samples/epoch_<epoch>`` (``train.samples``); a dump that
+    raises logs a warning and the run carries on, as in the JAX loop
+    (``styletts2_tpu/train/loop.py:248-256``)."""
     from .validate import make_stage1_val_step, make_stage2_val_step
 
     make = make_stage1_val_step if stage == 1 else make_stage2_val_step
@@ -291,11 +294,14 @@ def _run_validation(cfg: Config, configs: Dict, state: TrainState, val_loader, e
         for k, v in steps[mel_len](state.nets, tb, clip_u).items():
             totals[k] = totals.get(k, 0.0) + float(v)
         count += 1
-    if stage == 2 and first is not None and cfg.log_dir and (epoch + 1) % cfg.save_freq == 0:
-        from .samples import generate_samples
+    if first is not None and cfg.log_dir and (epoch + 1) % cfg.save_freq == 0:
+        try:
+            from .samples import generate_samples
 
-        generate_samples(state.nets, first, os.path.join(cfg.log_dir, "samples",
-                                                         f"epoch_{epoch:05d}"))
+            generate_samples(state.nets, first, os.path.join(cfg.log_dir, "samples",
+                                                             f"epoch_{epoch:05d}"))
+        except Exception as exc:   # sample dumps must never kill training
+            logger.warning("sample generation failed: %s", exc)
     means = {f"val_{k}": v / count for k, v in totals.items()} if count else {}
     if means and log_cb:
         log_cb(state.iters, means)

@@ -1,4 +1,4 @@
-"""Per-epoch sample dumps of stage 2 (the port of
+"""Per-epoch sample dumps of both training stages (the port of
 ``styletts2_tpu/train/samples.py``; ref: train_second.py:1086-1193).
 
 For the first samples of a validation batch: the recording, its

@@ -288,6 +288,15 @@ def frozen(modules: Iterable[nn.Module]):
             p.requires_grad_(True)
 
 
+def refuse_untrainable(mp: ModelParams) -> None:
+    """Both trainers run the iSTFTNet decoder of the single-speaker model:
+    a multispeaker or HiFi-GAN config is refused, not trained wrongly."""
+    if mp.multispeaker or mp.decoder.type != "istftnet":
+        raise NotImplementedError(
+            "the port trains the single-speaker iSTFTNet model only: multispeaker and "
+            "HiFi-GAN training is ROADMAP.md §A item 5")
+
+
 @dataclasses.dataclass
 class Stage1Trainer:
     config: Config
@@ -296,6 +305,9 @@ class Stage1Trainer:
     optimizer: MultiOptimizer
     remat_discriminators: bool = True  # recompute the generator side's MPD/MSD
                                        # activations in the backward
+
+    def __post_init__(self):
+        refuse_untrainable(self.configs["model"])
 
     def make_step(self, tma: bool, mel_len: int, mel_len_st: int):
         """The step of a (phase, clip length) bucket:

@@ -68,7 +68,7 @@ from ..nn.linear import linear
 from .optimizers import MultiOptimizer, clip_by_global_norm_if_above, scale_module_grads
 from .stage1 import (DISCRIMINATORS, HOP, clip_batch, clip_starts,
                      compute_alignment, discriminator_step_loss, frozen,
-                     generator_adversarial_loss)
+                     generator_adversarial_loss, refuse_untrainable)
 
 PROSODY = ("bert_encoder", "bert", "predictor", "predictor_encoder")
 ACOUSTIC = ("style_encoder", "decoder")
@@ -313,6 +313,9 @@ class Stage2Trainer:
     configs: Dict                   # {"model": ModelParams, "whisper": WhisperConfig}
     nets: nn.ModuleDict
     optimizer: MultiOptimizer
+
+    def __post_init__(self):
+        refuse_untrainable(self.configs["model"])
 
     def check_nets(self) -> None:
         missing = [n for n in STAGE2_NETS if n not in self.nets]

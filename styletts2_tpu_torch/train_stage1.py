@@ -6,9 +6,10 @@ train_first.py).
 Reads the train and validation lists (``wav|phonemes|speaker`` lines) and
 their audio under ``data_params.root_path``, builds the stage-1 nets
 (``models.zoo.STAGE1_TMA_NETS`` when the run reaches ``TMA_epoch``, else
-``STAGE1_NETS``) with the reference's initialisation, loads the pretrained
-aligner, pitch extractor and Whisper encoder (a missing file raises unless
-``STYLETTS2_ALLOW_RANDOM_ENCODERS=1``), then a resume or pretrained
+``STAGE1_NETS``) and the frozen ones its sample dumps read
+(``STAGE1_SAMPLE_NETS``) with the reference's initialisation, loads the
+pretrained aligner, pitch extractor, PL-BERT and Whisper encoder (a missing
+file raises unless ``STYLETTS2_ALLOW_RANDOM_ENCODERS=1``), then a resume or pretrained
 checkpoint, and trains with ``train.loop.run_stage1`` on the card
 (``--device cpu`` for the CPU).  Metrics go to ``<log_dir>/metrics.jsonl``,
 checkpoints to ``<log_dir>/epoch_1st_*.npz`` and ``first_stage_path``.
@@ -102,11 +103,12 @@ def main(argv: Optional[Sequence[str]] = None,
 
     from .config import load_config
     from .models.whisper import WhisperConfig
-    from .models.zoo import (STAGE1_NETS, STAGE1_TMA_NETS, build_nets, export_params,
-                             init_reference_, load_jax_params)
+    from .models.zoo import (STAGE1_NETS, STAGE1_SAMPLE_NETS, STAGE1_TMA_NETS, build_nets,
+                             export_params, init_reference_, load_jax_params)
     from .train.checkpoint import (convert_reference_checkpoint, load_checkpoint,
                                    load_pretrained_encoders)
     from .train.loop import run_stage1
+    from .train.stage1 import refuse_untrainable
     from .utils import MetricsWriter
 
     if args.device is None and not torch.cuda.is_available():
@@ -115,6 +117,7 @@ def main(argv: Optional[Sequence[str]] = None,
     device = torch.device(args.device or "cuda")
     logging.basicConfig(level=logging.INFO)
     cfg = load_config(args.config_path)
+    refuse_untrainable(cfg.model_params)
     os.makedirs(cfg.log_dir, exist_ok=True)
     cfg = grow_n_token(cfg)
 
@@ -122,7 +125,8 @@ def main(argv: Optional[Sequence[str]] = None,
 
     tma = cfg.epochs_1st > cfg.loss_params.TMA_epoch
     configs = {"model": cfg.model_params, "whisper": WhisperConfig()}
-    nets = build_nets(cfg.model_params, nets=STAGE1_TMA_NETS if tma else STAGE1_NETS,
+    nets = build_nets(cfg.model_params,
+                      nets=(STAGE1_TMA_NETS if tma else STAGE1_NETS) + STAGE1_SAMPLE_NETS,
                       whisper_cfg=configs["whisper"])
     init_reference_(nets, torch.Generator().manual_seed(INIT_SEED))
 

@@ -61,6 +61,7 @@ def main(argv: Optional[Sequence[str]] = None,
     from .train.checkpoint import (convert_reference_checkpoint, load_checkpoint,
                                    load_pretrained_encoders)
     from .train.loop import run_stage2
+    from .train.stage1 import refuse_untrainable
     from .utils import MetricsWriter
 
     if args.device is None and not torch.cuda.is_available():
@@ -69,6 +70,7 @@ def main(argv: Optional[Sequence[str]] = None,
     device = torch.device(args.device or "cuda")
     logging.basicConfig(level=logging.INFO)
     cfg = load_config(args.config_path)
+    refuse_untrainable(cfg.model_params)
     os.makedirs(cfg.log_dir, exist_ok=True)
     cfg = grow_n_token(cfg)
 

@@ -1,5 +1,6 @@
-"""Training utilities (the port of the parts of ``styletts2_tpu/utils.py``
-the stage-1 trainer uses): the scalar metrics log."""
+"""Utilities (the port of the parts of ``styletts2_tpu/utils.py`` the
+trainers and the demo use): the scalar metrics log and the real-time
+factor."""
 
 from __future__ import annotations
 
@@ -35,3 +36,9 @@ class MetricsWriter:
         self._jsonl.close()
         if self._tb is not None:
             self._tb.close()
+
+
+def rtf(elapsed_s: float, wave_samples: int, sr: int = 24000) -> float:
+    """Real-time factor as printed by the demo notebooks
+    (Demo/Inference_LJSpeech.ipynb cell 19): elapsed / audio_seconds."""
+    return elapsed_s / (wave_samples / sr)

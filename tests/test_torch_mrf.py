@@ -216,13 +216,17 @@ def test_three_tf32_products_keep_f32_accuracy(rounding):
 @pytest.mark.cuda
 @pytest.mark.parametrize("with_residual", [False, True])
 @pytest.mark.parametrize("k,d", [(3, 1), (3, 5), (7, 3), (11, 5), (11, 1)])
-@pytest.mark.parametrize("c,t", [(256, 2300), (128, 6001), (128, 12001)])
+@pytest.mark.parametrize("c,t", [(256, 2300), (128, 6001), (128, 12001),
+                                 (64, 2300), (64, 12001), (32, 2300), (32, 6001),
+                                 (32, 12001)])
 def test_kernel_matches_plain_on_gpu(c, t, k, d, with_residual):
     """The CUDA kernel against its plain version on the card at the
-    generator's round shapes, batch 3, lengths = T and < T: y at
-    1e-4 * max|y|, chained stats at 1e-4.  On 132 SMs the three (C, T) take
-    the kernel's 64-, 128- and 256-frame tiles; T=2300 its 16-byte loads of
-    x, the odd T its 4-byte loads; no T is a multiple of a tile."""
+    generators' round shapes, batch 3, lengths = T and < T: y at
+    1e-4 * max|y|, chained stats at 1e-4.  On 132 SMs the (C, T) of each
+    width take the kernel's 64-, 128- and 256-frame tiles; C 64 and 32 its
+    one-warpgroup blocks, C 32 with half of their weight rows zero; T=2300
+    its 16-byte loads of x, the odd T its 4-byte loads; no T is a multiple
+    of a tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     torch.backends.cudnn.allow_tf32 = False

@@ -190,8 +190,10 @@ def test_train_stage2_entry_point_from_stage1_on_cpu(tmp_path, monkeypatch):
     assert set(logs[2][1]) == {"val_mel_loss", "val_dur_loss", "val_F0_loss"}
     assert all(math.isfinite(v) for _, m in logs for v in m.values())
     params, *_ = load_checkpoint(str(first_stage))
+    # stage 1's nets and the frozen ones its sample dumps read
     assert sorted(params) == sorted(("text_encoder", "style_encoder", "decoder",
-                                     "text_aligner", "pitch_extractor"))
+                                     "text_aligner", "pitch_extractor", "bert",
+                                     "bert_encoder", "predictor", "predictor_encoder"))
     for name in ("text_aligner", "pitch_extractor", "text_encoder"):     # never trained
         for k, v in state.nets[name].state_dict().items():
             want = params[name]
