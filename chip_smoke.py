@@ -48,25 +48,29 @@ Phases, each of which exits non-zero when it fails:
    moved, per sub-phase the nets that move and those that stay bitwise
    equal, K1f/K1b/K3 launches a step (``train2_launches``), the median
    step of each sub-phase and the peak memory;
-7. train files: the stage-1 trainer as users run it
-   (``python -m styletts2_tpu_torch.train_stage1``, called in this
-   process) on a seeded LJSpeech-shaped corpus of WAVs at 22050 Hz written
-   to a temporary directory, at full width: one epoch before TMA and one
-   with it, validation after each, a checkpoint each, then a second run
-   resumed from the first epoch's checkpoint; finite train and validation
-   losses, K1f/K1b/K3 48/48/1 launches a step (48/0/1 a validation batch),
-   the files written, the checkpoint's nets and AdamW states loaded
-   exactly, the resumed step's losses those of the uninterrupted run; the
-   loader's wait per batch, the checkpoint's bytes and its
-   save and load times, and the validation time per batch.  Then stage 2
-   (``python -m styletts2_tpu_torch.train_stage2``) from the
-   ``first_stage.npz`` that run wrote, with a seeded out-of-distribution
-   text list: an epoch with diffusion and a joint one, validation and a
-   sample dump after each, checkpoints with ``sigma_data``, then the joint
-   epoch again resumed from the first's checkpoint.  Both stages dump
-   samples after each validation (K1f 96, K3 1 a dump); a dump that fails
+7. train files: the trainers as users run them
+   (``python -m styletts2_tpu_torch.train_stage1`` then ``train_stage2``,
+   called in this process, ``phase_train_files``) on a seeded
+   LJSpeech-shaped corpus of WAVs at 22050 Hz written to a temporary
+   directory, with a seeded out-of-distribution text list, at full width:
+   stage 1 with one epoch before TMA and one with it, then stage 2 from the
+   ``first_stage.npz`` it wrote with an epoch with diffusion and a joint
+   one (generator-SLM, then WD), validation and a sample dump after each
+   epoch, a checkpoint each, and each stage resumed from its first epoch's
+   checkpoint for one step; finite train and validation losses, the nets
+   that move and the frozen ones, K1f/K1b/K3 launches a step (48/48/1 a
+   stage-1 step, ``train2_launches`` in stage 2, 144/0/2 a validation with
+   its dump), the files and metrics lines written, a checkpoint's nets and
+   AdamW states loaded exactly, each resumed step's losses those of the
+   uninterrupted run; the loader's wait per batch, the checkpoints' bytes,
+   a save and a load, and the validation time per batch.  A dump that fails
    only warns in the trainers, so any such warning fails the phase;
-8. print the kernels line, the card's name and power limit, and, last,
+8. train libritts: the same phase for the multispeaker HiFi-GAN model of
+   ``configs/libritts.yml`` at full width, on a seeded 4-speaker corpus at
+   24 kHz, followed by the fine-tune recipe (``train_stage2 --finetune``
+   on ``configs/ljspeech_ft.yml``) from the stage-2 checkpoint, resumed
+   likewise (96/96/1 a stage-1 step, 288/0/2 a validation with its dump);
+9. print the kernels line, the card's name and power limit, and, last,
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``.  ``--profile`` adds a
@@ -561,14 +565,20 @@ def phase_train_kernels(torch, KA, KM):
     """adain_snake forward (K1f) and backward (K1b) against their plain
     versions, masked and not, at the stage-1 decoder's two row lengths in
     the step below (stage 0, stage 1), at the two of configs/ljspeech.yml's
-    max_len 400 (4000, 24001 frames) and at a short odd row, each with the
-    path its T takes.
+    max_len 400 (4000, 24001 frames), at a short odd row, and at the
+    HiFi-GAN's rows of the LibriTTS train phase (stage 0 as the iSTFTNet's;
+    9600, 28800 and 57600 frames at 128, 64 and 32 channels), the edges of
+    the long rows' shared-memory cache on this card (57856, 57857 frames)
+    and the last stage at configs/libritts.yml's max_len 300 (90000), each
+    with the path its T takes.
     maximum_path (K3) at the aligner's width: mixed lengths, a row with
     text_len == mel_len, and ties."""
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(SEED)
     rows = []
-    for c, t in ((256, 1920), (128, 11521), (256, 4000), (128, 24001), (256, 37)):
+    for c, t in ((256, 1920), (128, 11521), (256, 4000), (128, 24001), (256, 37),
+                 (128, 9600), (64, 28800), (32, 57600), (32, 57856), (32, 57857),
+                 (32, 90000)):
         b = 16
         x = torch.randn((b, c, t), generator=g, device=dev)
         gamma = 0.3 * torch.randn((b, c), generator=g, device=dev)
@@ -988,10 +998,12 @@ def _check_dumps(logs: Path, what: str, epochs=(0, 1)) -> None:
               f"{what}: samples of epoch {epoch}: {names}")
 
 
-def _write_corpus(root: Path, n: int, prefix: str, rng, n_short: int, sr: int = 22050):
+def _write_corpus(root: Path, n: int, prefix: str, rng, n_short: int, sr: int = 22050,
+                  speakers: int = 1):
     """``n`` seeded 16-bit PCM WAVs at ``sr`` Hz under ``root``, half of them
     ``n_short`` samples long and the rest up to 40% longer, and their list
-    of LJSpeech-style phoneme strings (``wav|phonemes|speaker``)."""
+    of LJSpeech-style phoneme strings (``wav|phonemes|speaker``), the clips
+    dealt round ``speakers`` speakers."""
     import numpy as np
     import scipy.io.wavfile as sw
 
@@ -1000,7 +1012,7 @@ def _write_corpus(root: Path, n: int, prefix: str, rng, n_short: int, sr: int = 
         length = n_short if i % 2 == 0 else n_short + int(rng.integers(1, int(0.4 * n_short)))
         pcm = (0.1 * rng.standard_normal(length) * 32767).astype(np.int16)
         sw.write(root / f"{prefix}{i:03d}.wav", sr, pcm)
-        lines.append(f"{prefix}{i:03d}.wav|{PHONEMES[i % len(PHONEMES)]}|0\n")
+        lines.append(f"{prefix}{i:03d}.wav|{PHONEMES[i % len(PHONEMES)]}|{i % speakers}\n")
     path = root / f"{prefix}_list.txt"
     path.write_text("".join(lines))
     return str(path)
@@ -1033,48 +1045,95 @@ def _arrays_equal_file(torch, npz, nets, optimizer) -> int:
     return compared
 
 
+def _ood_list(path: Path, rng, n: int = 16) -> str:
+    """``n`` seeded out-of-distribution texts, two of ``PHONEMES`` each (every
+    one longer than ``data_params.min_length``'s 50 characters)."""
+    path.write_text("".join(f"{PHONEMES[int(rng.integers(4))]} {PHONEMES[int(rng.integers(4))]}"
+                            f"|0\n" for _ in range(n)))
+    return str(path)
+
+
 def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
-                      clips=(32, 16), n_short=45400):
-    """The stage-1 trainer as users run it, from files on disk: a seeded
-    LJSpeech-shaped corpus (``clips`` train and validation WAVs at 22050 Hz,
-    half of them ``n_short`` samples, so every batch's shortest clip gives
-    198 mel frames and a clip of 96 aligner frames), then
-    ``styletts2_tpu_torch.train_stage1.main`` in this process on
-    ``configs/ljspeech.yml`` at full width (batch 16, ``epochs_1st`` 2,
-    ``TMA_epoch`` 1, ``save_freq`` 1, random frozen encoders: their files
-    are not in the repository), then a second run resumed from
-    ``epoch_1st_00000.npz``.  Checks finite train and validation losses,
-    K1f/K1b/K3 48/48/1 launches a step, the files written, that a load of
-    the epoch-0 checkpoint gives its nets and AdamW states exactly, and that
-    the resumed run's first step has the straight run's third step's losses
-    before their updates; times
-    the loader's wait per batch against the steps, a checkpoint's save and
-    load, and the validation step.  ``dev`` and ``overrides`` (merged into
-    the YAML) size a rehearsal on the CPU."""
+                      config="ljspeech.yml", sr=22050, speakers=1, clips=(32, 16),
+                      n_short=45400, finetune=False):
+    """The trainers as users run them, from files on disk: the entry points
+    ``train_stage1.main`` and ``train_stage2.main``, called in this process,
+    at the full width of ``configs/<config>`` (``init_reference_`` seed 0,
+    random frozen encoders: their files are not in the repository; f32, TF32
+    off), on a seeded corpus of noise WAVs at ``sr`` Hz dealt round
+    ``speakers`` speakers: ``clips`` train and validation clips, half of
+    them ``n_short`` samples (198 mel frames with the loader's padding, so
+    every batch's clip is 96 aligner frames), ``wav|phonemes|speaker``
+    lists and an out-of-distribution text list.  Batch 16, the other train
+    phases', so ``clips[0] // 16`` steps an epoch, and
+    ``slmadv_params.iter`` as many, so a joint epoch ends on a WD step.  In
+    order:
+    1. ``train_stage1.main``: 2 epochs, ``TMA_epoch`` 1;
+    2. ``train_stage2.main`` from the ``first_stage.npz`` it wrote:
+       ``diff_epoch`` 0, ``joint_epoch`` 1 (an epoch with diffusion, then
+       generator-SLM steps and a WD step);
+    3. with ``finetune``, ``train_stage2.main --finetune`` on
+       ``configs/ljspeech_ft.yml`` with ``pretrained_model`` the
+       ``2nd_stage.npz`` just written: 2 joint epochs;
+    each run then resumed from its first epoch's checkpoint for one step
+    (``--max_steps 1``).  Validation and a sample dump after every epoch.
+    Checks per step finite losses (``mono_loss`` and ``s2s_loss`` in
+    fine-tuning), the nets that move and that the others stay bitwise equal,
+    every decoder parameter moved when the decoder trains (the iSTFTNet's
+    constant source merge aside),
+    K1f/K1b/K3 launches equal to the derived counts (``train2_launches``; a
+    stage-1 step runs each of the decoder's pairs once each way, a
+    validation with its dump three times forward), the files and metrics
+    lines written, ``sigma_data`` moved, sample dumps without a "sample
+    generation failed" warning, each resumed run's first step with the
+    straight run's losses, and that a load of the first stage-1 checkpoint
+    gives its nets and AdamW states exactly; records the median step per
+    sub-phase, the loader's wait per batch, the peak memory of each run,
+    the checkpoints' bytes, the last run's save and load, and the stage-1
+    validation step per batch.  ``dev`` and ``overrides`` (merged into
+    every YAML, ``batch_size`` included) size a rehearsal on the CPU."""
     import tempfile
 
     import numpy as np
     import yaml
-    from styletts2_tpu_torch import train_stage1
+    from styletts2_tpu_torch import train_stage1, train_stage2
     from styletts2_tpu_torch.config import load_config
     from styletts2_tpu_torch.data import build_dataloader
+    from styletts2_tpu_torch.models.decoder import hifigan
     from styletts2_tpu_torch.models.zoo import STAGE1_SAMPLE_NETS, STAGE1_TMA_NETS, build_nets
+    from styletts2_tpu_torch.train import loop as train_loop
     from styletts2_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-    from styletts2_tpu_torch.train.loop import (VAL_STREAM, _bucket, _clip_lengths,
+    from styletts2_tpu_torch.train.loop import (VAL_STREAM, _bucket, _clip_lengths, host_draws,
                                                 make_lr_map, seeded_generator, to_device)
     from styletts2_tpu_torch.train.optimizers import MultiOptimizer
+    from styletts2_tpu_torch.train.stage1 import DISCRIMINATORS, TMA_TRAINED, TRAINED
+    from styletts2_tpu_torch.train.stage2 import generator_nets
     from styletts2_tpu_torch.train.validate import make_stage1_val_step
 
     on_card = dev is None or torch.device(dev).type == "cuda"
-    names = ("adain_snake_fwd", "adain_snake_bwd", "maximum_path", "mrf_round")
-    zero = dict.fromkeys(names, 0)
-    want_step = {**zero, "adain_snake_fwd": 48, "adain_snake_bwd": 48, "maximum_path": 1}
-    want_val = {**zero, "adain_snake_fwd": 48, "maximum_path": 1}
-    # a validation's log line also counts its sample dump's K1f 96 and K3 1
-    want_val_dump = {**zero, "adain_snake_fwd": 144, "maximum_path": 2}
+    zero = dict.fromkeys(KERNELS, 0)
+    disc = set(DISCRIMINATORS)
+    moves = {"pre_tma": set(TRAINED), "tma": set(TMA_TRAINED) | disc,
+             "diffusion": set(generator_nets(True, False)) | disc,
+             "generator_slm": set(generator_nets(True, True)) | disc,
+             "wd": set(generator_nets(True, True)) | disc | {"wd"},
+             "ft_generator_slm": set(generator_nets(True, True, True)) | disc,
+             "ft_wd": set(generator_nets(True, True, True)) | disc | {"wd"}}
+    held = {}
+    originals = (train_loop.run_stage1, train_loop.run_stage2)
+
+    def holding(run):
+        """``run`` that first keeps its nets here, and a host copy of them
+        unless it resumes (its first step starts from the loaded state)."""
+        def wrapped(cfg, configs, nets, *args, **kw):
+            held["nets"] = nets
+            if not kw.get("resume_from"):
+                held["before"] = _host_copy(nets)
+            return run(cfg, configs, nets, *args, **kw)
+        return wrapped
 
     def counts():
-        return dict(zip(names, (KA.fwd_launches, KA.bwd_launches, KM.launches, K2.launches)))
+        return dict(zip(KERNELS, (KA.fwd_launches, KA.bwd_launches, KM.launches, K2.launches)))
 
     def reset():
         KA.fwd_launches = KA.bwd_launches = KM.launches = K2.launches = 0
@@ -1083,335 +1142,303 @@ def phase_train_files(torch, KA, KM, K2, card="", dev=None, overrides=None,
         if on_card:
             torch.cuda.synchronize()
 
+    def release():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+
+    label = f"train {Path(config).stem}"
+    batch = (overrides or {}).get("batch_size", 16)
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_files_"))
-    out = {"clips": list(clips), "n_short": n_short, "sr": 22050}
+    per_epoch = clips[0] // batch
+    out = {"config": config, "clips": list(clips), "n_short": n_short, "sr": sr,
+           "speakers": speakers, "batch": batch}
     dumps_failed = _DumpFailures()
     loop_log = logging.getLogger("styletts2_tpu_torch.train.loop")
     loop_log.addHandler(dumps_failed)
+    train_loop.run_stage1, train_loop.run_stage2 = map(holding, originals)
     try:
         rng = np.random.default_rng(SEED)
-        spec = yaml.safe_load((ROOT / "configs" / "ljspeech.yml").read_text())
-        spec.update({"first_stage_path": "first_stage.npz", "epochs_1st": 2, "save_freq": 1,
-                     "log_interval": 1, "batch_size": 16})
-        spec["loss_params"]["TMA_epoch"] = 1
-        spec["data_params"].update({
-            "train_data": _write_corpus(tmp, clips[0], "train", rng, n_short),
-            "val_data": _write_corpus(tmp, clips[1], "val", rng, n_short),
-            "root_path": str(tmp), "OOD_data": ""})
-        for key, value in (overrides or {}).items():
-            spec[key] = {**spec[key], **value} if isinstance(value, dict) else value
-        yml = tmp / "ljspeech_files.yml"
-        args = ["--config_path", str(yml)] + (["--device", dev] if dev else [])
+        data = {"train_data": _write_corpus(tmp, clips[0], "train", rng, n_short, sr, speakers),
+                "val_data": _write_corpus(tmp, clips[1], "val", rng, n_short, sr, speakers),
+                "root_path": str(tmp), "OOD_data": _ood_list(tmp / "ood_texts.txt", rng)}
+
+        def spec_of(name, **top):
+            spec = yaml.safe_load((ROOT / "configs" / name).read_text())
+            spec.update({"save_freq": 1, "log_interval": 1, "batch_size": 16, **top})
+            spec["data_params"].update(data)
+            spec["slmadv_params"]["iter"] = per_epoch
+            for key, value in (overrides or {}).items():
+                spec[key] = {**spec[key], **value} if isinstance(value, dict) else value
+            return spec
+
+        logs = tmp / "logs"
+        s12 = spec_of(config, log_dir=str(logs), first_stage_path="first_stage.npz",
+                      epochs_1st=2, epochs_2nd=2)
+        s12["loss_params"].update({"TMA_epoch": 1, "diff_epoch": 0, "joint_epoch": 1})
+        min_len = s12["data_params"].get("min_length", 50)
+        check(all(len(ln.split("|")[0]) >= min_len
+                  for ln in Path(data["OOD_data"]).read_text().splitlines()),
+              f"{label}: an OOD text is shorter than min_length")
+        train_list = Path(data["train_data"]).read_text().splitlines()
+        loader = build_dataloader(train_list, str(tmp), batch_size=batch)
+        out["mel_len"] = [_bucket(_clip_lengths(b["mel_input_length"], s12["max_len"]))
+                          for epoch in (0, 1) for b in loader(epoch)]
+        if overrides is None:
+            check(out["mel_len"] == [96] * 2 * per_epoch,
+                  f"the corpus's clips are {out['mel_len']}")
         os.environ[RANDOM_ENCODERS] = "1"
-        print(f"train files: the frozen encoders (ASR, JDC, Whisper) keep random weights "
+        print(f"{label}: the frozen encoders (ASR, JDC, PL-BERT, Whisper) keep random weights "
               f"({RANDOM_ENCODERS}=1): their files are not in the repository", flush=True)
 
-        def run(extra, log_dir):
-            """One ``train_stage1.main`` call into ``log_dir``, its steps'
-            and validations' metrics and launches, and the step times."""
-            spec["log_dir"] = str(log_dir)
+        def run(main, spec, extra, log_dir, stage):
+            """One entry-point call into ``log_dir`` and the records of its
+            steps and validations, each step's moved nets and launches checked."""
+            spec = {**spec, "log_dir": str(log_dir)}
+            yml = tmp / f"{stage}.yml"
             yml.write_text(yaml.safe_dump(spec, allow_unicode=True))
+            metrics_file = log_dir / "metrics.jsonl"
+            lines0 = len(metrics_file.read_text().splitlines()) if metrics_file.exists() else 0
             recs = []
 
             def log_cb(it, metrics):
-                recs.append({"iter": it, "metrics": metrics, "launches": counts(),
-                             "t": time.perf_counter(), "val": "val_mel_loss" in metrics})
+                t = time.perf_counter()
+                val = "val_mel_loss" in metrics
+                kind = ("val" if val else ("tma" if "d_loss" in metrics else "pre_tma")
+                        if stage == "stage1" else _sub_phase(metrics))
+                kind = f"ft_{kind}" if stage == "finetune" and not val else kind
+                rec = {"iter": it, "kind": kind, "metrics": metrics, "launches": counts(),
+                       "t": t}
                 reset()
+                if not val:
+                    now = _host_copy(held["nets"])
+                    if "before" in held:
+                        rec["moved"] = sorted(n for n in now if any(
+                            not torch.equal(a, b) for a, b in zip(held["before"][n], now[n])))
+                        if "decoder" in rec["moved"]:
+                            # every decoder parameter is in the step's graph
+                            # (but the iSTFTNet's source merge: its source is
+                            # a constant), so none may stay equal
+                            dec = held["nets"]["decoder"]
+                            fixed = () if isinstance(dec, hifigan.Decoder) else (
+                                "generator.m_source.",)
+                            params = {k for k, _ in dec.named_parameters()
+                                      if not k.startswith(fixed)}
+                            rec["decoder_still"] = [
+                                k for k, a, b in zip(dec.state_dict(), held["before"]["decoder"],
+                                                     now["decoder"])
+                                if k in params and torch.equal(a, b)]
+                    held["before"] = now
+                rec["t_end"] = time.perf_counter()
+                recs.append(rec)
+
             if on_card:
                 sync()
                 torch.cuda.reset_peak_memory_stats()
             reset()
             t0 = time.perf_counter()
-            state = train_stage1.main(args + extra, log_cb=log_cb)
+            argv = ["--config_path", str(yml)] + (["--device", dev] if dev else []) + extra
+            state = main(argv, log_cb=log_cb)
             wall = time.perf_counter() - t0
-            check(not dumps_failed.messages, f"train-files: {dumps_failed.messages}")
-            for rec in recs:
-                check(all(np.isfinite(v) for v in rec["metrics"].values()),
-                      f"train-files losses at iter {rec['iter']}: {rec['metrics']}")
-                want = (want_val_dump if rec["val"] else want_step) if on_card else zero
-                check(rec["launches"] == want,
-                      f"train-files launches at iter {rec['iter']}: {rec['launches']}")
-            # a step's time: from the step before it, in the same epoch, to its metrics
-            step_ms = {("tma" if "d_loss" in b["metrics"] else "pre_tma"): 1e3 * (b["t"] - a["t"])
-                       for a, b in zip(recs, recs[1:]) if not (a["val"] or b["val"])}
-            return state, {"wall_s": wall, "log": [{k: r[k] for k in ("iter", "metrics",
-                                                                     "launches")}
-                                                   for r in recs],
-                           "steps": sum(not r["val"] for r in recs),
-                           "validations": sum(r["val"] for r in recs), "step_ms": step_ms,
+            check(not dumps_failed.messages, f"{label} {stage}: {dumps_failed.messages}")
+            check(len(metrics_file.read_text().splitlines()) == lines0 + len(recs),
+                  f"{label} {stage}: {metrics_file} does not hold {len(recs)} new lines")
+            pairs = train2_launches(state.nets, "wd")["adain_snake_bwd"]
+            for i, rec in enumerate(recs):
+                m, kind = rec["metrics"], rec["kind"]
+                check(all(np.isfinite(v) for v in m.values()),
+                      f"{label} {stage} losses at iter {rec['iter']}: {m}")
+                if kind == "val":       # a validation batch and the sample dump's two passes
+                    want = {"adain_snake_fwd": 3 * pairs, "adain_snake_bwd": 0,
+                            "maximum_path": 2}
+                elif stage == "stage1":
+                    want = {"adain_snake_fwd": pairs, "adain_snake_bwd": pairs,
+                            "maximum_path": 1}
+                else:
+                    sub = kind.removeprefix("ft_")
+                    steps_before = sum(r["kind"] != "val" for r in recs[:i])
+                    use_ind = sub == "generator_slm" and host_draws(
+                        SEED, rec["iter"] - 1, steps_before % per_epoch, True,
+                        spec["slmadv_params"]["iter"])[2]
+                    rec["use_ind"] = use_ind
+                    want = train2_launches(state.nets, sub, use_ind)
+                check(rec["launches"] == ({**zero, **want} if on_card else zero),
+                      f"{label} {stage} launches at iter {rec['iter']} ({kind}): "
+                      f"{rec['launches']} against {want}")
+                if "moved" in rec:
+                    check(set(rec["moved"]) == moves[kind], f"{label} {stage} step "
+                          f"{rec['iter']} ({kind}) moved {rec['moved']}")
+                    check(not rec.get("decoder_still"), f"{label} {stage} step {rec['iter']} "
+                          f"({kind}): decoder parameters unchanged {rec.get('decoder_still')}")
+                if stage == "finetune" and kind != "val":
+                    check({"mono_loss", "s2s_loss"} <= set(m), f"fine-tune step metrics {m}")
+            step_ms = {}
+            for a, b in zip(recs, recs[1:]):
+                if not (a["kind"] == "val" or b["kind"] == "val"):
+                    step_ms.setdefault(b["kind"], []).append(1e3 * (b["t"] - a["t_end"]))
+            held.clear()
+            return state, {"wall_s": wall, "step_ms": step_ms,
+                           "log": [{k: r[k] for k in ("iter", "kind", "metrics", "launches")
+                                    if k in r} for r in recs],
+                           "moved": {r["kind"]: r["moved"] for r in recs if "moved" in r},
                            "data_wait_ms": [1e3 * w for w in state.data_wait_s],
                            "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else 0}
 
-        train_list = Path(spec["data_params"]["train_data"]).read_text().splitlines()
-        loader = build_dataloader(train_list, str(tmp), batch_size=spec["batch_size"])
-        out["mel_len"] = [_bucket(_clip_lengths(b["mel_input_length"], spec["max_len"]))
-                          for epoch in (0, 1) for b in loader(epoch)]
-        if overrides is None:
-            check(out["mel_len"] == [96] * 4, f"the corpus's clips are {out['mel_len']}")
+        def epoch_of(*kinds):
+            return list(kinds[:1]) * (per_epoch - 1) + list(kinds[1:]) + ["val"]
 
-        logs = tmp / "logs"
-        state, first = run([], logs)
-        cfg = train_stage1.grow_n_token(load_config(str(yml)))
-        check((state.epoch, state.iters, first["steps"], first["validations"]) == (2, 4, 4, 2),
-              f"train-files run: epoch {state.epoch}, iters {state.iters}, {first['steps']} "
-              f"steps, {first['validations']} validations")
-        for name in ("epoch_1st_00000.npz", "epoch_1st_00001.npz", "first_stage.npz",
-                     "metrics.jsonl"):
-            check((logs / name).is_file(), f"train-files: {name} not written")
-        _check_dumps(logs, "train-files stage 1")
-        check(len((logs / "metrics.jsonl").read_text().splitlines()) == 6,
-              "train-files: metrics.jsonl does not hold 4 steps and 2 validations")
-        (logs / "epoch_1st_00001.npz").unlink()       # the state first_stage.npz holds too
-        out["ckpt_bytes"] = {"epoch_1st_00000 (before TMA)":
-                             (logs / "epoch_1st_00000.npz").stat().st_size,
-                             "first_stage (from TMA on)": (logs / "first_stage.npz").stat().st_size}
+        s1_keys = ("mel_loss", "mono_loss", "s2s_loss", "slm_loss", "d_loss")
+        s2_keys = ("mel_loss", "dur_loss", "ce_loss", "norm_loss", "F0_loss", "lm_loss",
+                   "sty_loss", "diff_loss", "d_loss")
+        stages = [("stage1", train_stage1.main, s12, [], logs, "1st", "first_stage.npz",
+                   epoch_of("pre_tma", "pre_tma") + epoch_of("tma", "tma"), s1_keys),
+                  ("stage2", train_stage2.main, s12, [], logs, "2nd", "2nd_stage.npz",
+                   epoch_of("diffusion", "diffusion") + epoch_of("generator_slm", "wd"),
+                   s2_keys)]
+        if finetune:
+            ft = spec_of("ljspeech_ft.yml", epochs=2,
+                         pretrained_model=str(logs / "2nd_stage.npz"))
+            stages.append(("finetune", train_stage2.main, ft, ["--finetune"], tmp / "logs_ft",
+                           "ft", "ft_stage.npz", epoch_of("ft_generator_slm", "ft_wd") * 2,
+                           s2_keys + ("mono_loss", "s2s_loss")))
+        out["ckpt_bytes"] = {}
+        for stage, entry, spec, flags, log_dir, tag, final, want, keys in stages:
+            state, first = run(entry, spec, flags, log_dir, stage)
+            check((state.epoch, state.iters) == (2, 2 * per_epoch)
+                  and [r["kind"] for r in first["log"]] == want,
+                  f"{label} {stage}: epoch {state.epoch}, iters {state.iters}, "
+                  f"{[r['kind'] for r in first['log']]}")
+            for name in (f"epoch_{tag}_00000.npz", f"epoch_{tag}_00001.npz", final):
+                check((log_dir / name).is_file(), f"{label} {stage}: {name} not written")
+            if stage != "stage1":
+                check(math.isfinite(state.sigma_data) and state.sigma_data != 0.2,
+                      f"{label} {stage}: sigma_data {state.sigma_data}")
+                meta = json.loads((log_dir / (final + ".meta.json")).read_text())
+                check(math.isfinite(meta["extra"].get("sigma_data", math.nan)),
+                      f"{label} {stage}: {final} holds no sigma_data: {meta}")
+                vals = [r["metrics"] for r in first["log"] if r["kind"] == "val"]
+                check(all(set(v) == {"val_mel_loss", "val_dur_loss", "val_F0_loss"}
+                          for v in vals), f"{label} {stage} validation: {vals}")
+                first["sigma_data"] = state.sigma_data
+            _check_dumps(log_dir, f"{label} {stage}")
+            out["ckpt_bytes"][f"epoch_{tag}_00000"] = (
+                log_dir / f"epoch_{tag}_00000.npz").stat().st_size
+            out["ckpt_bytes"][final] = (log_dir / final).stat().st_size
 
-        # a checkpoint's save and load, timed on the trained TMA state
-        timed = tmp / "timed.npz"
-        sync()
-        t0 = time.perf_counter()
-        save_checkpoint(str(timed), state.nets, state.optimizer, state.epoch, state.iters)
-        out["save_s"] = time.perf_counter() - t0
-        out["save_bytes"] = timed.stat().st_size
-        t0 = time.perf_counter()
-        load_checkpoint(str(timed), state.nets, state.optimizer)
-        sync()
-        out["load_s"] = time.perf_counter() - t0
-        timed.unlink()
+            if stage == "stage1":
+                # the validation step on the trained nets, per batch
+                cfg = train_stage1.grow_n_token(load_config(str(tmp / "stage1.yml")))
+                val_list = Path(data["val_data"]).read_text().splitlines()
+                val_loader = build_dataloader(val_list, str(tmp), validation=True,
+                                              batch_size=batch)
+                device = next(state.nets.parameters()).device
+                gen = seeded_generator(SEED, 0, device, VAL_STREAM)
+                out["val_ms"], out["val_loss"] = [], []
+                pairs = train2_launches(state.nets, "wd")["adain_snake_bwd"]
+                want_val = {**zero, "adain_snake_fwd": pairs, "maximum_path": 1}
+                for b in [b for _ in range(3) for b in val_loader(0)]:
+                    tb = to_device(b, device)
+                    step = make_stage1_val_step(cfg, {}, _bucket(_clip_lengths(
+                        b["mel_input_length"], s12["max_len"])))
+                    u = torch.rand((tb["texts"].shape[0],), generator=gen, device=device)
+                    sync()
+                    reset()
+                    t0 = time.perf_counter()
+                    out["val_loss"].append(float(step(state.nets, tb, u)["mel_loss"]))
+                    out["val_ms"].append(1e3 * (time.perf_counter() - t0))
+                    check(counts() == (want_val if on_card else zero),
+                          f"{label} validation launches: {counts()}")
+                del step
+            if stage == stages[-1][0]:
+                # a checkpoint's save and load, timed on the last run's state
+                timed = tmp / "timed.npz"
+                sync()
+                t0 = time.perf_counter()
+                save_checkpoint(str(timed), state.nets, state.optimizer, state.epoch,
+                                state.iters, extra={"sigma_data": state.sigma_data})
+                out["save_s"] = time.perf_counter() - t0
+                out["save_bytes"] = timed.stat().st_size
+                t0 = time.perf_counter()
+                load_checkpoint(str(timed), state.nets, state.optimizer)
+                sync()
+                out["load_s"] = time.perf_counter() - t0
+                timed.unlink()
+            del state
+            release()
 
-        # the validation step on the trained nets, per batch
-        val_list = Path(spec["data_params"]["val_data"]).read_text().splitlines()
-        val_loader = build_dataloader(val_list, str(tmp), validation=True,
-                                      batch_size=spec["batch_size"])
-        device = next(state.nets.parameters()).device
-        gen = seeded_generator(SEED, 0, device, VAL_STREAM)
-        out["val_ms"], out["val_loss"] = [], []
-        for batch in [b for _ in range(3) for b in val_loader(0)]:
-            tb = to_device(batch, device)
-            step = make_stage1_val_step(cfg, {}, _bucket(_clip_lengths(
-                batch["mel_input_length"], spec["max_len"])))
-            u = torch.rand((tb["texts"].shape[0],), generator=gen, device=device)
-            sync()
-            reset()
-            t0 = time.perf_counter()
-            out["val_loss"].append(float(step(state.nets, tb, u)["mel_loss"]))
-            out["val_ms"].append(1e3 * (time.perf_counter() - t0))
-            check(counts() == (want_val if on_card else zero), f"validation launches: {counts()}")
-        final = {f"{n}.{k}": v.detach().cpu().numpy().copy()
-                 for n, net in state.nets.items() for k, v in net.state_dict().items()}
-        del state, step
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
+            if stage == "stage1":
+                # a load of the epoch-0 checkpoint gives its nets and AdamW states exactly
+                nets = build_nets(cfg.model_params,
+                                  nets=STAGE1_TMA_NETS + STAGE1_SAMPLE_NETS).to(device)
+                opt = MultiOptimizer(nets, make_lr_map(cfg), default_lr=cfg.optimizer_params.lr)
+                _, epoch0, iters0, _ = load_checkpoint(str(logs / "epoch_1st_00000.npz"),
+                                                       nets, opt)
+                check((epoch0, iters0) == (1, per_epoch),
+                      f"epoch_1st_00000 holds epoch {epoch0}, iters {iters0}")
+                out["resume_tensors_equal"] = _arrays_equal_file(
+                    torch, logs / "epoch_1st_00000.npz", nets, opt)
+                del nets, opt
+                release()
 
-        # a load of the epoch-0 checkpoint gives its nets and AdamW states exactly
-        nets = build_nets(cfg.model_params,
-                          nets=STAGE1_TMA_NETS + STAGE1_SAMPLE_NETS).to(device)
-        opt = MultiOptimizer(nets, make_lr_map(cfg), default_lr=cfg.optimizer_params.lr)
-        _, epoch0, iters0, _ = load_checkpoint(str(logs / "epoch_1st_00000.npz"), nets, opt)
-        check((epoch0, iters0) == (1, 2), f"epoch_1st_00000 holds epoch {epoch0}, iters {iters0}")
-        out["resume_tensors_equal"] = _arrays_equal_file(torch, logs / "epoch_1st_00000.npz",
-                                                         nets, opt)
-        del nets, opt
-        gc.collect()
-
-        state, resumed = run(["--resume", str(logs / "epoch_1st_00000.npz")], tmp / "resumed")
-        check((state.epoch, state.iters, resumed["steps"], resumed["validations"]) == (2, 4, 2, 1),
-              f"resumed run: epoch {state.epoch}, iters {state.iters}, {resumed['steps']} steps")
-        # the resumed run's first step sees the nets, states and noise of the
-        # straight run's third: its losses before any update agree
-        straight3 = [r for r in first["log"] if "val_mel_loss" not in r["metrics"]][2]
-        resumed1 = resumed["log"][0]
-        for key in ("mel_loss", "mono_loss", "s2s_loss", "slm_loss", "d_loss"):
-            a, b = straight3["metrics"][key], resumed1["metrics"][key]
-            check(abs(a - b) <= 1e-6 * abs(a), f"resumed step 3 {key} {b} against {a}")
-        out["resumed_vs_straight_max_abs_diff"] = max(
-            float(np.abs(v.detach().cpu().numpy() - final[f"{n}.{k}"]).max())
-            for n, net in state.nets.items() for k, v in net.state_dict().items())
-        del state
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
-        out.update(first=first, resumed=resumed)
-        out["stage2"] = _train_files_stage2(torch, KA, KM, K2, spec, yml, tmp, args, on_card,
-                                            rng)
-        check(not dumps_failed.messages, f"train-files stage 2: {dumps_failed.messages}")
+            # the resumed run's first step sees the nets, states, sigma_data
+            # and noise of the straight run's first step of epoch 1: its
+            # losses before any update agree
+            state, resumed = run(entry, spec, flags + ["--max_steps", "1", "--resume",
+                                                      str(log_dir / f"epoch_{tag}_00000.npz")],
+                                 tmp / f"resumed_{stage}", stage)
+            check((state.epoch, state.iters) == (1, per_epoch + 1)
+                  and [r["kind"] for r in resumed["log"]] == want[per_epoch + 1:per_epoch + 2],
+                  f"{label} {stage} resumed: {resumed['log']}")
+            straight = [r for r in first["log"] if r["kind"] != "val"][per_epoch]["metrics"]
+            for key in keys:
+                a, b = straight[key], resumed["log"][0]["metrics"][key]
+                check(abs(a - b) <= 1e-6 * abs(a), f"{label} {stage}: the resumed run's "
+                      f"first step {key} {b} against {a}")
+            del state
+            release()
+            out[stage] = {"first": first, "resumed": resumed}
+            for f in log_dir.glob(f"epoch_{tag}_*"):
+                f.unlink()
     finally:
+        train_loop.run_stage1, train_loop.run_stage2 = originals
         loop_log.removeHandler(dumps_failed)
         os.environ.pop(RANDOM_ENCODERS, None)
         shutil.rmtree(tmp, ignore_errors=True)
-        gc.collect()
-        if on_card:
-            torch.cuda.empty_cache()
-    waits = out["first"]["data_wait_ms"] + out["resumed"]["data_wait_ms"]
-    steps = [out[r]["step_ms"] for r in ("first", "resumed")]
-    peak = max(out[r]["peak_mem_bytes"] for r in ("first", "resumed"))
-    print(f"train files: losses {[r['metrics'] for r in out['first']['log']]}, resumed "
-          f"{[r['metrics'] for r in out['resumed']['log']]}", flush=True)
-    print(f"train files: loader wait per batch {['%.3f' % w for w in waits]} ms (median "
-          f"{statistics.median(waits):.3f}) against steps {steps} ms; checkpoint "
-          f"{out['ckpt_bytes']} bytes, save {out['save_s']:.3f} s and load "
-          f"{out['load_s']:.3f} s of {out['save_bytes']} bytes; validation "
-          f"{['%.3f' % v for v in out['val_ms']]} ms per batch of {spec['batch_size']}; "
-          f"peak memory "
-          f"{peak / 2**30:.2f} GiB; resumed nets and AdamW states equal the file "
-          f"({out['resume_tensors_equal']} tensors); resumed against straight max |diff| "
-          f"{out['resumed_vs_straight_max_abs_diff']:.3e}; {card}", flush=True)
-    s2 = out["stage2"]
-    waits2 = s2["first"]["data_wait_ms"] + s2["resumed"]["data_wait_ms"]
-    print(f"train files stage 2 (PL-BERT, ASR, JDC and Whisper random): losses "
-          f"{[r['metrics'] for r in s2['first']['log']]}, resumed "
-          f"{[r['metrics'] for r in s2['resumed']['log']]}", flush=True)
-    print(f"train files stage 2: steps {[s2[r]['step_ms'] for r in ('first', 'resumed')]} ms; "
-          f"loader wait {['%.3f' % w for w in waits2]} ms; checkpoint bytes {s2['ckpt_bytes']} "
-          f"(counted beforehand {s2['ckpt_bytes_counted']}), save {s2['save_s']:.3f} s and "
-          f"load {s2['load_s']:.3f} s; peak memory "
-          f"{max(s2[r]['peak_mem_bytes'] for r in ('first', 'resumed')) / 2**30:.2f} GiB; "
-          f"sigma_data {s2['sigma_data']:.6f}; resumed step 3 equals the straight run's; "
-          f"{card}", flush=True)
+        release()
+    names = [s[0] for s in stages]
+    runs = {f"{s}/{r}": out[s][r] for s in names for r in ("first", "resumed")}
+    medians = {}
+    for rec in runs.values():
+        for kind, times in rec["step_ms"].items():
+            medians.setdefault(kind, []).extend(times)
+    out["median_step_ms"] = {k: statistics.median(v) for k, v in medians.items()}
+    out["peak_mem_bytes"] = {k: r["peak_mem_bytes"] for k, r in runs.items()}
+    waits = [w for r in runs.values() for w in r["data_wait_ms"]]
+    out["data_wait_median_ms"] = statistics.median(waits)
+    out["launches"] = {name: sum(rec["launches"][name] for s in names
+                                 for rec in out[s]["first"]["log"]) for name in KERNELS}
+    for s in names:
+        print(f"{label} {s}: losses {[r['metrics'] for r in out[s]['first']['log']]}, resumed "
+              f"{[r['metrics'] for r in out[s]['resumed']['log']]}", flush=True)
+    print(f"{label}: median step ms {out['median_step_ms']} (of "
+          f"{ {k: ['%.1f' % t for t in v] for k, v in medians.items()} }); loader wait per "
+          f"batch median {out['data_wait_median_ms']:.3f} ms (of {len(waits)}); validation "
+          f"{['%.3f' % v for v in out['val_ms']]} ms per batch of {batch}; peak memory GiB "
+          f"{ {k: round(v / 2**30, 2) for k, v in out['peak_mem_bytes'].items()} }; checkpoint "
+          f"bytes {out['ckpt_bytes']}, save {out['save_s']:.3f} s and load {out['load_s']:.3f} s "
+          f"of {out['save_bytes']} bytes; the first stage-1 checkpoint's nets and AdamW states "
+          f"loaded exactly ({out['resume_tensors_equal']} tensors); sigma_data "
+          f"{ {s: out[s]['first']['sigma_data'] for s in names[1:]} }; launches (K1f, K1b, K3) "
+          f"{[(r['kind'], tuple(r['launches'].values())[:3]) for s in names for r in out[s]['first']['log']]}; "
+          f"moved {[out[s]['first']['moved'] for s in names]}; each resume's first step equals "
+          f"the straight run's; {card}", flush=True)
     return out
 
 
-def _train_files_stage2(torch, KA, KM, K2, spec, yml, tmp, args, on_card, rng):
-    """Stage 2 of the train-files phase: ``train_stage2.main`` from the
-    ``first_stage.npz`` the stage-1 run wrote into ``<tmp>/logs``, on the same
-    corpus with a seeded out-of-distribution text list: 2 epochs of 2 steps
-    (``diff_epoch`` 0, ``joint_epoch`` 1, ``save_freq`` 1), then epoch 1
-    again from ``epoch_2nd_00000.npz``.  Returns the records."""
-    import numpy as np
-    import yaml
-    from styletts2_tpu_torch import train_stage2
-    from styletts2_tpu_torch.train.checkpoint import load_checkpoint, save_checkpoint
-
-    from styletts2_tpu_torch.train.loop import host_draws
-
-    zero = dict.fromkeys(KERNELS, 0)
-    ood = tmp / "ood_texts.txt"
-    ood.write_text("".join(f"{PHONEMES[int(rng.integers(4))]} {PHONEMES[int(rng.integers(4))]}"
-                           f"|0\n" for _ in range(16)))
-    spec["data_params"]["OOD_data"] = str(ood)
-    spec.update({"epochs_2nd": 2, "save_freq": 1})
-    spec["loss_params"].update({"diff_epoch": 0, "joint_epoch": 1})
-    min_len = spec["data_params"].get("min_length", 50)
-    check(all(len(ln.split("|")[0]) >= min_len for ln in ood.read_text().splitlines()),
-          "train-files: an OOD text is shorter than min_length")
-    out = {}
-
-    def counts():
-        return dict(zip(KERNELS, (KA.fwd_launches, KA.bwd_launches, KM.launches, K2.launches)))
-
-    def reset():
-        KA.fwd_launches = KA.bwd_launches = KM.launches = K2.launches = 0
-
-    def run(extra, log_dir):
-        spec["log_dir"] = str(log_dir)
-        yml.write_text(yaml.safe_dump(spec, allow_unicode=True))
-        recs = []
-
-        def log_cb(it, metrics):
-            val = "val_mel_loss" in metrics
-            recs.append({"iter": it, "metrics": metrics, "launches": counts(),
-                         "t": time.perf_counter(), "val": val,
-                         "kind": "val" if val else _sub_phase(metrics)})
-            reset()
-        if on_card:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        reset()
-        t0 = time.perf_counter()
-        state = train_stage2.main(args + extra, log_cb=log_cb)
-        wall = time.perf_counter() - t0
-        for rec in recs:
-            check(all(np.isfinite(v) for v in rec["metrics"].values()),
-                  f"train-files stage 2 losses at iter {rec['iter']}: {rec['metrics']}")
-            if rec["val"]:     # a validation batch (K1f 48, K3 1) and the sample dump's 96 and 1
-                want = {"adain_snake_fwd": 144, "adain_snake_bwd": 0, "maximum_path": 2}
-            else:              # the i-th step of its epoch
-                i = (rec["iter"] - 1) % 2
-                use_ind = rec["kind"] == "generator_slm" and host_draws(
-                    SEED, rec["iter"] - 1, i, True, spec["slmadv_params"]["iter"])[2]
-                want = train2_launches(state.nets, rec["kind"], use_ind)
-            check(rec["launches"] == ({**zero, **want} if on_card else zero),
-                  f"train-files stage 2 launches at iter {rec['iter']} ({rec['kind']}): "
-                  f"{rec['launches']} against {want}")
-        step_ms = {}
-        for a, b in zip(recs, recs[1:]):
-            if not (a["val"] or b["val"]):
-                step_ms.setdefault(b["kind"], []).append(1e3 * (b["t"] - a["t"]))
-        return state, {"wall_s": wall, "step_ms": step_ms,
-                       "log": [{k: r[k] for k in ("iter", "kind", "metrics", "launches")}
-                               for r in recs],
-                       "data_wait_ms": [1e3 * w for w in state.data_wait_s],
-                       "peak_mem_bytes": torch.cuda.max_memory_allocated() if on_card else 0}
-
-    logs = tmp / "logs"
-    check((logs / "first_stage.npz").is_file(), "train-files: no first_stage.npz for stage 2")
-    state, first = run([], logs)
-    kinds = [r["kind"] for r in first["log"]]
-    check((state.epoch, state.iters) == (2, 4) and kinds == [
-        "diffusion", "diffusion", "val", "generator_slm", "generator_slm", "val"],
-        f"train-files stage 2: epoch {state.epoch}, iters {state.iters}, records {kinds}")
-    for name in ("epoch_2nd_00000.npz", "epoch_2nd_00001.npz", "2nd_stage.npz"):
-        check((logs / name).is_file(), f"train-files stage 2: {name} not written")
-        meta = json.loads((logs / (name + ".meta.json")).read_text())
-        check(math.isfinite(meta["extra"].get("sigma_data", math.nan)),
-              f"train-files stage 2: {name} holds no sigma_data: {meta}")
-    _check_dumps(logs, "train-files stage 2")
-    vals = [r["metrics"] for r in first["log"] if r["kind"] == "val"]
-    check(all(set(v) == {"val_mel_loss", "val_dur_loss", "val_F0_loss"} for v in vals),
-          f"train-files stage 2 validation: {vals}")
-
-    # a checkpoint's bytes, counted from the parameter counts beforehand: every
-    # tensor of the 14 nets in f32, and AdamW's two moments (and a step
-    # count per tensor) for each net stepped so far
-    def counted(stepped):
-        tensors = sum(t.numel() for net in state.nets.values() for t in net.state_dict().values())
-        adamw = sum(8 * p.numel() + 4 for n in stepped for p in state.nets[n].parameters())
-        return 4 * tensors + adamw
-    from styletts2_tpu_torch.train.stage2 import generator_nets
-    out["ckpt_bytes_counted"] = {
-        "epoch_2nd_00000 (diffusion)": counted(set(generator_nets(True, False)) | {"mpd", "msd"}),
-        "2nd_stage (joint)": counted(set(generator_nets(True, True)) | {"mpd", "msd"})}
-    out["ckpt_bytes"] = {"epoch_2nd_00000 (diffusion)":
-                         (logs / "epoch_2nd_00000.npz").stat().st_size,
-                         "2nd_stage (joint)": (logs / "2nd_stage.npz").stat().st_size}
-    timed = tmp / "timed2.npz"
-    if on_card:
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    save_checkpoint(str(timed), state.nets, state.optimizer, state.epoch, state.iters,
-                    extra={"sigma_data": state.sigma_data})
-    out["save_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    load_checkpoint(str(timed), state.nets, state.optimizer)
-    if on_card:
-        torch.cuda.synchronize()
-    out["load_s"] = time.perf_counter() - t0
-    timed.unlink()
-    (logs / "epoch_2nd_00001.npz").unlink()     # the state 2nd_stage.npz holds too
-    del state
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
-
-    state, resumed = run(["--resume", str(logs / "epoch_2nd_00000.npz")], tmp / "resumed2")
-    check((state.epoch, state.iters) == (2, 4)
-          and [r["kind"] for r in resumed["log"]] == ["generator_slm", "generator_slm", "val"],
-          f"train-files stage 2 resumed: epoch {state.epoch}, iters {state.iters}")
-    # the resumed run's first step sees the nets, states, sigma_data and noise
-    # of the straight run's third: its losses before any update agree
-    straight3 = [r for r in first["log"] if r["kind"] != "val"][2]["metrics"]
-    for key in ("mel_loss", "dur_loss", "ce_loss", "norm_loss", "F0_loss", "lm_loss",
-                "sty_loss", "diff_loss", "d_loss"):
-        a, b = straight3[key], resumed["log"][0]["metrics"][key]
-        check(abs(a - b) <= 1e-6 * abs(a), f"resumed stage-2 step 3 {key} {b} against {a}")
-    out["sigma_data"] = state.sigma_data
-    del state
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
-    out.update(first=first, resumed=resumed)
-    return out
+def _host_copy(nets) -> dict:
+    """A host copy of every tensor of ``nets``, per net."""
+    return {n: [t.detach().to("cpu", copy=True) for t in net.state_dict().values()]
+            for n, net in nets.items()}
 
 
 def main() -> None:
@@ -1468,9 +1495,12 @@ def main() -> None:
     gc.collect()                          # the stage-2 nets go before the trainer from files
     torch.cuda.empty_cache()
     train_files = phase_train_files(torch, KA, KM, K, card=card)
-    files_launches = {name: sum(r["launches"][name] for r in train_files["first"]["log"]
-                                + train_files["stage2"]["first"]["log"])
-                      for name in KERNELS}
+    gc.collect()                          # the LJSpeech trainer goes before LibriTTS's
+    torch.cuda.empty_cache()
+    train_libritts = phase_train_files(torch, KA, KM, K, card=card, config="libritts.yml",
+                                       sr=24000, speakers=4, clips=(48, 16), n_short=49415,
+                                       finetune=True)
+    files_launches = train_files["launches"]
 
     timed = {r["stage"]: r for r in kernel_rows if "ms" in r}
     s1 = timed["stage1"]
@@ -1498,6 +1528,7 @@ def main() -> None:
             "launches_tma": train_tma["launches"][name],
             "launches_train2": train2["launches"][name],
             "launches_train_files": files_launches[name],
+            "launches_train_libritts": train_libritts["launches"][name],
             "max_abs_err": max(r[f"{direction}_max_abs_err"] for r in k1_err),
             "ms": k1[f"{direction}_ms"], "device_ms": k1[f"{direction}_device_ms"],
             "plain_ms": k1[f"{direction}_plain_ms"],
@@ -1511,6 +1542,7 @@ def main() -> None:
         "launches_tma": train_tma["launches"]["maximum_path"],
         "launches_train2": train2["launches"]["maximum_path"],
         "launches_train_files": files_launches["maximum_path"],
+        "launches_train_libritts": train_libritts["launches"]["maximum_path"],
         "max_abs_err": max(r["max_abs_err"] for r in train_kernel_rows if "case" in r),
         "ms": k3["ms"], "device_ms": k3["device_ms"], "plain_ms": k3["plain_ms"], "bound_ms": k3["bound_ms"],
         "bound_by": k3["bound_by"], "library_ms": None, "shape": k3["shape"]})
@@ -1522,6 +1554,7 @@ def main() -> None:
          "train_kernel_checks": train_kernel_rows, "serve": serve,
          "serve_libritts": serve_libritts, "train": train,
          "train_tma": train_tma, "train2": train2, "train_files": train_files,
+         "train_libritts": train_libritts,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

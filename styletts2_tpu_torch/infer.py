@@ -29,7 +29,7 @@ import torch
 
 from .audio.mel import DATASET_MEL, log_mel_spectrogram
 from .config import ModelParams
-from .models.decoder import hifigan, istftnet
+from .models.decoder import decoder_apply
 from .models.diffusion import sampler as S
 from .models.diffusion.denoiser import denoiser_cfg_apply
 from .models.plbert import PLBertConfig, grown_position_table, plbert_apply
@@ -72,8 +72,6 @@ class InferenceEngine:
         self.device = resolve_device(device)
         self.nets = nets.to(self.device).eval()
         self.model_params = model_params
-        self._decoder_apply = (hifigan if model_params.decoder.type == "hifigan"
-                               else istftnet).decoder_apply
         self.plbert_cfg = plbert_cfg
         self.sigma_data = sigma_data
         self.token_bucket = token_bucket
@@ -172,7 +170,7 @@ class InferenceEngine:
                 raise ValueError(f"source_noise {tuple(source_noise.shape)} needs batch "
                                  f"{t_en.shape[0]} and at least {need} samples")
             source_noise = source_noise[..., :need].to(self.device)
-        wav = self._decoder_apply(self.nets["decoder"], asr, f0, n, ref, lengths=frames,
+        wav = decoder_apply(self.nets["decoder"], asr, f0, n, ref, lengths=frames,
                                   fused=True, source_noise=source_noise)
         return wav[:, 0, :]
 

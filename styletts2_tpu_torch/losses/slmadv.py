@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from ..config import ModelParams, SlmAdvParams
-from ..models.decoder.istftnet import decoder_apply
+from ..models.decoder import decoder_apply
 from ..models.diffusion import sampler as S
 from ..models.diffusion.denoiser import denoiser_apply, fixed_embedding
 from ..models.plbert import plbert_apply
@@ -80,7 +80,8 @@ def slm_adversarial(nets: nn.ModuleDict, mp: ModelParams, adv: SlmAdvParams,
                     noise: SlmAdvNoise, num_steps: int, use_ind_style: bool,
                     run_discriminator: bool, frame_capacity: int,
                     mel_len: Optional[int] = None, use_rec: bool = False,
-                    real_alt: bool = False, sigma_data=0.2) -> SlmAdvOut:
+                    real_alt: bool = False, sigma_data=0.2,
+                    ref_style: Optional[torch.Tensor] = None) -> SlmAdvOut:
     """One SLM adversarial pass (ref: slmadv.py:45-171).
 
     ref_texts (B, L) and ref_lengths (B,): the texts spoken; waves (B, T)
@@ -90,7 +91,9 @@ def slm_adversarial(nets: nn.ModuleDict, mp: ModelParams, adv: SlmAdvParams,
     ``use_ind_style`` the styles are s_trg instead of sampled.
     ``frame_capacity`` is the alignment's frame budget and ``mel_len`` the
     clip in decoder frames (at most ``adv.max_len // 2``).  ``sigma_data``
-    is the diffusion's current estimate.
+    is the diffusion's current estimate.  ``ref_style`` (B, 2 * style_dim):
+    a multispeaker model's reference styles, the sampler's ``features``
+    (ref: slmadv.py:86-95).
 
     ``gen_loss`` carries gradients to ``bert``, ``bert_encoder``,
     ``predictor`` and ``diffusion`` (through the frozen text encoder,
@@ -117,7 +120,7 @@ def slm_adversarial(nets: nn.ModuleDict, mp: ModelParams, adv: SlmAdvParams,
                               bert_dur.detach())
 
             def net(x, c_noise):
-                return denoiser_apply(transformer, x, c_noise, emb)
+                return denoiser_apply(transformer, x, c_noise, emb, features=ref_style)
 
             s_preds = S.adpm2_sample(noise.noise, S.k_denoise_fn(net, sigma_data),
                                      S.karras_schedule(num_steps, device=dev), num_steps,

@@ -16,7 +16,7 @@ card) at each stage's width, 256 down to 32 channels at LibriTTS width.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -57,6 +57,11 @@ class Generator(nn.Module):
         self.resblocks = nn.ModuleList(resblocks)
         self.conv_post = cm.WNConv1d(init_ch // (2 ** len(rates)), 1, 7)
 
+    @property
+    def samples_per_frame(self) -> int:
+        """Waveform samples per input frame: the upsampling alone."""
+        return math.prod(self.cfg.upsample_rates)
+
 
 def generator_apply(m: Generator, x: torch.Tensor, s: torch.Tensor, f0: torch.Tensor,
                     lengths: Optional[torch.Tensor] = None, fused: bool = False,
@@ -65,9 +70,10 @@ def generator_apply(m: Generator, x: torch.Tensor, s: torch.Tensor, f0: torch.Te
     (ref: Modules/hifigan.py:320-346).  ``lengths`` (B,) valid frames at
     T_mel; ``source_noise`` the harmonic source's dither (None: zero)."""
     rates = m.cfg.upsample_rates
-    # the harmonic source is a constant, as in the reference (no_grad)
+    # the sine bank is a constant; its merge layer trains, as in the
+    # reference (Modules/hifigan.py wraps only l_sin_gen in no_grad)
     har = source_module_apply_mel(m.m_source, f0, math.prod(rates),
-                                  noise=source_noise).transpose(1, 2).detach().to(x.dtype)
+                                  noise=source_noise).transpose(1, 2).to(x.dtype)
     for i, u in enumerate(rates):
         x = snake(x, m.alphas[i])
         stage_lengths = None if lengths is None else lengths * math.prod(rates[: i + 1])
@@ -91,10 +97,16 @@ class Decoder(istftnet.Decoder):
 def decoder_apply(m: Decoder, asr: torch.Tensor, f0_curve: torch.Tensor,
                   n_curve: torch.Tensor, s: torch.Tensor,
                   lengths: Optional[torch.Tensor] = None, fused: bool = False,
-                  source_noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  source_noise: Optional[torch.Tensor] = None,
+                  smooth: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """``istftnet.decoder_head`` then the HiFi-GAN generator -> waveform
-    (B, 1, T_samples) (ref: Modules/hifigan.py:445-474)."""
-    x, s, f0_curve = istftnet.decoder_head(m, asr, f0_curve, n_curve, s, lengths, fused)
+    (B, 1, T_samples) (ref: Modules/hifigan.py:445-474).  The training form
+    passes ``smooth``, the indices of the F0 and energy curves' smoothing
+    widths (``istftnet.random_smooth``), and the dither ``source_noise``;
+    it runs ``fused=False``, whose AdaIN -> Snake pairs go through
+    ``ops/fused.py::adain_snake`` (K1f forward, K1b backward on the card)."""
+    x, s, f0_curve = istftnet.decoder_head(m, asr, f0_curve, n_curve, s, lengths, fused,
+                                           smooth)
     return generator_apply(m.generator, x, s, f0_curve,
                            lengths=None if lengths is None else lengths * 2,
                            fused=fused, source_noise=source_noise)

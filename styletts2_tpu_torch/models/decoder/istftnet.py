@@ -59,6 +59,11 @@ class Generator(nn.Module):
         self.resblocks = nn.ModuleList(resblocks)
         self.conv_post = cm.WNConv1d(init_ch // (2 ** len(rates)), n_fft + 2, 7)
 
+    @property
+    def samples_per_frame(self) -> int:
+        """Waveform samples per input frame: the upsampling and the iSTFT hop."""
+        return math.prod(self.cfg.upsample_rates) * self.cfg.gen_istft_hop_size
+
 
 def fit_length(x: torch.Tensor, t: int) -> torch.Tensor:
     """x cropped or zero-padded to ``t`` frames (the source branch against

@@ -69,6 +69,9 @@ def source_module_apply_mel(m: SourceModule, f0_mel: torch.Tensor,
     if noise is not None:
         noise_amp = uv * noise_std + (1.0 - uv) * sine_amp / 3.0
         sine_waves = sine_waves + noise_amp * noise
+    # the sine bank is a constant (the reference runs it under no_grad): only
+    # the merge ``l_linear`` takes a gradient
+    sine_waves = sine_waves.detach()
     w = m.l_linear.weight.reshape(-1).float()
     merged = (torch.sum(sine_waves * w[None, :, None], dim=1, keepdim=True)
               + m.l_linear.bias.float()[None, :, None])

@@ -85,10 +85,15 @@ def seeded_generator(seed: int, index: int, device, stream: int = TRAIN_STREAM
 
 
 def to_device(batch: Dict, dev: torch.device) -> Dict[str, torch.Tensor]:
-    """The step's tensors of a numpy batch: ``waves`` f32, the lengths and
-    tokens int64 (the reference texts too, where the batch has them)."""
-    tb = {"waves": torch.as_tensor(np.asarray(batch["waves"], np.float32), device=dev)}
-    for k in ("mel_input_length", "texts", "input_lengths", "ref_texts", "ref_lengths"):
+    """The step's tensors of a numpy batch: the waveforms f32, the lengths
+    and tokens int64 (the reference texts and the same-speaker reference
+    clips too, where the batch has them)."""
+    tb = {}
+    for k in ("waves", "ref_waves"):
+        if k in batch:
+            tb[k] = torch.as_tensor(np.asarray(batch[k], np.float32), device=dev)
+    for k in ("mel_input_length", "texts", "input_lengths", "ref_texts", "ref_lengths",
+              "ref_frame_lengths"):
         if k in batch:
             tb[k] = torch.as_tensor(np.asarray(batch[k]), device=dev).long()
     return tb
@@ -192,24 +197,30 @@ def host_draws(seed: int, iters: int, i: int, joint: bool, slm_iter: int
 def run_stage2(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
                val_loader=None, max_steps: Optional[int] = None,
                log_cb: Optional[Callable[[int, Dict], None]] = None,
-               resume_from: Optional[str] = None, device=None, seed: int = 0
-               ) -> TrainState:
+               resume_from: Optional[str] = None, device=None, seed: int = 0,
+               finetune: bool = False) -> TrainState:
     """Train ``nets`` (the ``models.zoo.STAGE2_NETS``) in place: the prosody
     nets, from ``cfg.loss_params.diff_epoch`` the diffusion and the MPD/MSD
     step, from ``joint_epoch`` the style encoder and decoder and the SLM
-    adversarial update (``train.stage2``).
+    adversarial update (``train.stage2``).  With ``finetune``, the
+    fine-tune recipe (ref: train_finetune.py): ``cfg.epochs`` epochs, all of
+    it from step 0, the text encoder and the aligner trained too, and the
+    checkpoints tagged ``ft`` instead of ``2nd``.
 
     The loaders and ``configs`` as in ``run_stage1``; the batches also hold
     ``ref_texts`` (B, L) and ``ref_lengths`` (B,), the out-of-distribution
-    texts.  ``TrainState.sigma_data`` starts at the config's
+    texts, and for a multispeaker model ``ref_waves`` (B, T_ref) and
+    ``ref_frame_lengths`` (B,), a clip of the same speaker
+    (``data.Collater``).  ``TrainState.sigma_data`` starts at the config's
     ``diffusion.dist.sigma_data`` and carries each step's estimate.
     ``resume_from``: a checkpoint whose nets, AdamW states, ``epoch``,
     ``iters`` and ``sigma_data`` the run continues from.  After each epoch:
     validation (``val_mel_loss``, ``val_dur_loss``, ``val_F0_loss``) and,
     every ``cfg.save_freq`` epochs, a sample dump of the first validation
     batch under ``<log_dir>/samples/epoch_<epoch>`` and a checkpoint
-    ``epoch_2nd_{epoch:05d}.npz``; at the end ``2nd_stage.npz``.  A run cut
-    by ``max_steps`` saves nothing.
+    ``epoch_2nd_{epoch:05d}.npz`` (``epoch_ft_*``); at the end
+    ``2nd_stage.npz`` (``ft_stage.npz``).  A run cut by ``max_steps`` saves
+    nothing.
     """
     dev = _device(device)
     nets.to(dev)
@@ -224,14 +235,16 @@ def run_stage2(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
                     state.epoch, state.iters)
     lp, adv = cfg.loss_params, cfg.slmadv_params
     frame_capacity = _bucket(adv.max_len, 50)
+    tag = "ft" if finetune else "2nd"
     steps_done = 0
 
     def save(name):
         save_checkpoint(os.path.join(cfg.log_dir, name), nets, opt, state.epoch, state.iters,
                         extra={"sigma_data": state.sigma_data})
 
-    for epoch in range(state.epoch, cfg.epochs_2nd):
-        diff, joint = epoch >= lp.diff_epoch, epoch >= lp.joint_epoch
+    for epoch in range(state.epoch, cfg.epochs if finetune else cfg.epochs_2nd):
+        diff = finetune or epoch >= lp.diff_epoch
+        joint = finetune or epoch >= lp.joint_epoch
         t0 = time.time()
         for i, batch in enumerate(_batches(state, train_loader(epoch))):
             mel_len = _bucket(_clip_lengths(np.asarray(batch["mel_input_length"]),
@@ -241,7 +254,7 @@ def run_stage2(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
             num_steps, run_disc, use_ind, use_rec, real_alt = host_draws(
                 seed, state.iters, i, joint, adv.iter)
             phase = Stage2Phase(diff, joint, diff, mel_len, num_steps, run_disc, use_ind,
-                                use_rec, real_alt, frame_capacity)
+                                use_rec, real_alt, frame_capacity, finetune)
             metrics, sigma_data = trainer.step(
                 to_device(batch, dev), phase, state.sigma_data,
                 generator=seeded_generator(seed, state.iters, dev))
@@ -257,9 +270,9 @@ def run_stage2(cfg: Config, configs: Dict, nets: nn.ModuleDict, train_loader,
         if val_loader is not None:
             _run_validation(cfg, configs, state, val_loader, epoch, log_cb, dev, seed, stage=2)
         if cfg.log_dir and (epoch + 1) % cfg.save_freq == 0:
-            save(f"epoch_2nd_{epoch:05d}.npz")
+            save(f"epoch_{tag}_{epoch:05d}.npz")
     if cfg.log_dir:
-        save("2nd_stage.npz")
+        save(f"{tag}_stage.npz")
     return state
 
 

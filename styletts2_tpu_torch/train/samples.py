@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 from ..audio.mel import DATASET_MEL, log_mel_spectrogram, log_norm
-from ..models.decoder.istftnet import decoder_apply
+from ..models.decoder import decoder_apply
 from ..models.jdc import jdc_apply
 from ..models.plbert import plbert_apply
 from ..models.predictor import duration_encoder_apply, duration_logits, prosody_f0n_apply

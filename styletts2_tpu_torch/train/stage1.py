@@ -6,9 +6,10 @@ The forward of one step: the log-mel of the batch's waveforms on the device,
 cut to an even length; the aligner (with its dropout) and the monotonic path
 (kernel K3, a constant); the text encoder; the soft or the monotonic
 alignment, one draw for the whole batch; a random clip per sample; the pitch
-extractor on the clip; the style encoder; the training decoder (its 48
-AdaIN -> Snake pairs through kernels K1f/K1b); and the multi-resolution STFT
-loss.
+extractor on the clip; the style encoder, on the clip or, for a
+multispeaker model, on a second random clip of the same utterance; the
+training decoder, iSTFTNet or HiFi-GAN (its 48 or 96 AdaIN -> Snake pairs
+through kernels K1f/K1b); and the multi-resolution STFT loss.
 
 Before TMA the aligner and the pitch extractor are frozen and run with no
 graph, the loss is the STFT loss alone (the reference leaves ``lambda_mel``
@@ -35,7 +36,6 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-import math
 from typing import Dict, Iterable, Optional, Tuple
 
 import torch
@@ -49,7 +49,8 @@ from ..losses.gan import discriminator_loss_full, generator_loss_full
 from ..losses.slm import slm_feature_loss
 from ..losses.stft_loss import multi_resolution_stft_loss
 from ..models.asr import ASRNoise, asr_apply
-from ..models.decoder.istftnet import F0_SMOOTH, N_SMOOTH, decoder_apply
+from ..models.decoder import decoder_apply
+from ..models.decoder.istftnet import F0_SMOOTH, N_SMOOTH
 from ..models.discriminators import mpd_apply, mpd_towers, msd_apply, msd_towers
 from ..models.jdc import jdc_apply
 from ..models.style_encoder import style_encoder_apply
@@ -98,11 +99,9 @@ class Stage1Noise:
         the shapes follow ``nets`` and the batch."""
         texts = batch["texts"]
         dev = texts.device
-        b, t_text = texts.shape
-        t_mel = (_n_frames(batch["waves"].shape[-1]) // 2) * 2
-        te, gen = nets["text_encoder"], nets["decoder"].generator
+        b = texts.shape[0]
+        gen = nets["decoder"].generator
         harmonics = gen.m_source.l_linear.weight.shape[1]
-        samples_per_frame = math.prod(gen.cfg.upsample_rates) * gen.cfg.gen_istft_hop_size
 
         def u(*shape):
             return torch.rand(shape, generator=generator, device=dev)
@@ -110,14 +109,32 @@ class Stage1Noise:
         def pick(n):
             return torch.randint(0, n, (), generator=generator, device=dev)
 
+        asr, text_keep, use_mono = draw_alignment_noise(generator, nets, batch)
         return cls(
-            asr=ASRNoise.draw(generator, nets["text_aligner"].cfg, b, t_text, t_mel // 2, dev),
-            text_keep=u(len(te.cnn), b, te.embedding.embedding_dim, t_text) < 1.0 - TEXT_DROPOUT,
-            use_mono=u() < 0.5,
+            asr=asr, text_keep=text_keep, use_mono=use_mono,
             clip_u=u(b), style_clip_u=u(b),
             f0_smooth=pick(len(F0_SMOOTH)), n_smooth=pick(len(N_SMOOTH)),
-            source_noise=torch.randn((b, harmonics, mel_len * 2 * samples_per_frame),
+            source_noise=torch.randn((b, harmonics, mel_len * 2 * gen.samples_per_frame),
                                      generator=generator, device=dev))
+
+
+def draw_alignment_noise(generator: torch.Generator, nets: nn.ModuleDict,
+                         batch: Dict[str, torch.Tensor]
+                         ) -> Tuple[ASRNoise, torch.Tensor, torch.Tensor]:
+    """The draws of a trained alignment, in this order: the aligner's
+    dropout and token masking, the text encoder's dropout masks (depth, B,
+    C, T_text), and the 0-dim bool choice of the monotonic path over the
+    soft alignment for the whole batch."""
+    texts = batch["texts"]
+    dev = texts.device
+    b, t_text = texts.shape
+    t_mel = (_n_frames(batch["waves"].shape[-1]) // 2) * 2
+    te = nets["text_encoder"]
+    asr = ASRNoise.draw(generator, nets["text_aligner"].cfg, b, t_text, t_mel // 2, dev)
+    text_keep = (torch.rand((len(te.cnn), b, te.embedding.embedding_dim, t_text),
+                            generator=generator, device=dev) < 1.0 - TEXT_DROPOUT)
+    use_mono = torch.rand((), generator=generator, device=dev) < 0.5
+    return asr, text_keep, use_mono
 
 
 def _n_frames(n_samples: int) -> int:
@@ -288,15 +305,6 @@ def frozen(modules: Iterable[nn.Module]):
             p.requires_grad_(True)
 
 
-def refuse_untrainable(mp: ModelParams) -> None:
-    """Both trainers run the iSTFTNet decoder of the single-speaker model:
-    a multispeaker or HiFi-GAN config is refused, not trained wrongly."""
-    if mp.multispeaker or mp.decoder.type != "istftnet":
-        raise NotImplementedError(
-            "the port trains the single-speaker iSTFTNet model only: multispeaker and "
-            "HiFi-GAN training is ROADMAP.md §A item 5")
-
-
 @dataclasses.dataclass
 class Stage1Trainer:
     config: Config
@@ -305,9 +313,6 @@ class Stage1Trainer:
     optimizer: MultiOptimizer
     remat_discriminators: bool = True  # recompute the generator side's MPD/MSD
                                        # activations in the backward
-
-    def __post_init__(self):
-        refuse_untrainable(self.configs["model"])
 
     def make_step(self, tma: bool, mel_len: int, mel_len_st: int):
         """The step of a (phase, clip length) bucket:

@@ -11,9 +11,24 @@ the style reconstruction of an ADPM2 sample; the duration head and the
 prosody encoding over the monotonic alignment, with dropout; one clip per
 sample; the pitch extractor and the decoder on the ground-truth F0 and
 energy (``y_rec_gt_pred``, no graph); the F0/N head, with dropout, and the
-training decoder (its 48 AdaIN -> Snake pairs through kernels K1f/K1b) on
-the predicted curves; and the losses: STFT, F0, energy, duration CE and L1,
-the Whisper feature loss, the style and diffusion losses.
+training decoder, iSTFTNet or HiFi-GAN (its 48 or 96 AdaIN -> Snake pairs
+through kernels K1f/K1b), on the predicted curves; and the losses: STFT, F0,
+energy, duration CE and L1, the Whisper feature loss, the style and
+diffusion losses.
+
+A multispeaker model (``mp.multispeaker``) also takes, with diffusion, the
+reference styles of the batch's same-speaker clips (``ref_waves``: the
+style encoder's and the prosody style encoder's, concatenated) as the
+style-conditioned denoiser's ``features``, in the diffusion loss (with
+gradients), the sampled styles and the SLM adversarial pass (constants), and
+its clip styles come from a second random clip of the utterance.
+
+The fine-tune recipe (``finetune``; ref: train_finetune.py) trains every
+net from step 0: the text encoder and the aligner join the generator step,
+the alignment runs in its training form (the aligner's and the text
+encoder's dropout, and the 50% choice of the monotonic path over the soft
+alignment as explicit draws), and the aligner's ``mono`` and ``s2s`` losses
+are added.
 
 Then, in this order:
 1. from ``diff_epoch`` (``start_ds``): the MPD/MSD step on the detached
@@ -30,7 +45,8 @@ Then, in this order:
    every ``slmadv_params.iter``-th batch, the Whisper discriminator's.
 Before ``joint_epoch`` the decoder is frozen and the waveform target is its
 own reconstruction ``y_rec_gt_pred``; from then on it is the recording.
-The text encoder, aligner, pitch extractor and Whisper encoder never train.
+Outside the fine-tune recipe the text encoder and the aligner never train;
+the pitch extractor and the Whisper encoder never do.
 
 Every random input of the step is an explicit tensor of ``Stage2Noise``,
 drawn in one place from a ``torch.Generator``, so the tests can feed the
@@ -40,7 +56,6 @@ draws the JAX package makes.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -52,7 +67,9 @@ from ..config import Config, LossParams, ModelParams
 from ..losses.slm import slm_feature_loss
 from ..losses.slmadv import EMBEDDING_MASK_PROBA, SlmAdvNoise, slm_adversarial
 from ..losses.stft_loss import multi_resolution_stft_loss
-from ..models.decoder.istftnet import F0_SMOOTH, N_SMOOTH, decoder_apply
+from ..models.asr import ASRNoise
+from ..models.decoder import decoder_apply
+from ..models.decoder.istftnet import F0_SMOOTH, N_SMOOTH
 from ..models.diffusion import sampler as S
 from ..models.diffusion.denoiser import denoiser_apply, fixed_embedding
 from ..models.jdc import jdc_apply
@@ -66,20 +83,22 @@ from ..models.whisper import WhisperConfig
 from ..models.zoo import STAGE2_NETS
 from ..nn.linear import linear
 from .optimizers import MultiOptimizer, clip_by_global_norm_if_above, scale_module_grads
-from .stage1 import (DISCRIMINATORS, HOP, clip_batch, clip_starts,
-                     compute_alignment, discriminator_step_loss, frozen,
-                     generator_adversarial_loss, refuse_untrainable)
+from .stage1 import (DISCRIMINATORS, HOP, clip_batch, clip_starts, compute_alignment,
+                     discriminator_step_loss, draw_alignment_noise, frozen,
+                     generator_adversarial_loss, mono_loss, s2s_loss)
 
 PROSODY = ("bert_encoder", "bert", "predictor", "predictor_encoder")
 ACOUSTIC = ("style_encoder", "decoder")
 SLM_GENERATOR = ("bert_encoder", "bert", "predictor", "diffusion")
 SLM_DISCRIMINATOR = ("wd",)
+ALIGNMENT = ("text_encoder", "text_aligner")
 
 
-def generator_nets(diff: bool, joint: bool) -> Tuple[str, ...]:
-    """The nets the generator step trains (ref: train_second.py; the JAX
-    package's ``stage2.py:101-104``)."""
-    return PROSODY + (("diffusion",) if diff else ()) + (ACOUSTIC if joint else ())
+def generator_nets(diff: bool, joint: bool, finetune: bool = False) -> Tuple[str, ...]:
+    """The nets the generator step trains (ref: train_second.py,
+    train_finetune.py; the JAX package's ``stage2.py:101-104``)."""
+    return (PROSODY + (("diffusion",) if diff else ()) + (ACOUSTIC if joint or finetune else ())
+            + (ALIGNMENT if finetune else ()))
 
 
 def _smooth_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -103,7 +122,12 @@ class Stage2Noise:
     decoder's ``F0_SMOOTH`` and ``N_SMOOTH``; source_noise (B, harmonics,
     T_audio): the harmonic source's dither; slm: the SLM adversarial pass's
     (``losses.slmadv.SlmAdvNoise``), over texts of the longer of the batch's
-    and the reference texts.
+    and the reference texts; st_clip_u (B,) uniforms in [0, 1): the style
+    clip's starts (a multispeaker model's clip styles).  The fine-tune
+    recipe's trained alignment (None otherwise, each as in
+    ``stage1.Stage1Noise``): asr, the aligner's dropout and token masking;
+    text_keep, the text encoder's dropout; use_mono, the 0-dim bool choice
+    of the monotonic path over the soft alignment.
     """
 
     emb_mask: torch.Tensor
@@ -119,14 +143,18 @@ class Stage2Noise:
     n_smooth: torch.Tensor
     source_noise: torch.Tensor
     slm: SlmAdvNoise
+    st_clip_u: Optional[torch.Tensor] = None
+    asr: Optional[ASRNoise] = None
+    text_keep: Optional[torch.Tensor] = None
+    use_mono: Optional[torch.Tensor] = None
 
     @classmethod
     def draw(cls, generator: torch.Generator, nets: nn.ModuleDict,
              batch: Dict[str, torch.Tensor], mel_len: int, num_steps: int,
-             embedding_mask_proba: float = 0.1) -> "Stage2Noise":
+             embedding_mask_proba: float = 0.1, finetune: bool = False) -> "Stage2Noise":
         """Every draw of one step from ``generator``, on the batch's device;
         the shapes follow ``nets``, the batch, the clip length and the
-        sampler's ``num_steps``."""
+        sampler's ``num_steps``; the trained alignment's with ``finetune``."""
         texts = batch["texts"]
         dev = texts.device
         b, t_text = texts.shape
@@ -134,7 +162,6 @@ class Stage2Noise:
         predictor, gen = nets["predictor"], nets["decoder"].generator
         latent = (b, 1, nets["diffusion"]["transformer"].to_out["1"].out_channels)
         harmonics = gen.m_source.l_linear.weight.shape[1]
-        samples_per_frame = math.prod(gen.cfg.upsample_rates) * gen.cfg.gen_istft_hop_size
 
         def u(*shape):
             return torch.rand(shape, generator=generator, device=dev)
@@ -151,7 +178,7 @@ class Stage2Noise:
 
         dur_enc, dur_lstm = duration_keep(t_text)
         slm_enc, slm_lstm = duration_keep(t_slm)
-        return cls(
+        noise = cls(
             emb_mask=u(b, 1, 1) < embedding_mask_proba,
             sigma_normals=normal(b), diff_noise=normal(*latent),
             sample_noise=normal(*latent), sample_step_noise=normal(num_steps - 1, *latent),
@@ -160,12 +187,17 @@ class Stage2Noise:
                       for s1, s2 in f0n_dropout_shapes(predictor, b, mel_len)],
             f0_smooth=torch.randint(0, len(F0_SMOOTH), (), generator=generator, device=dev),
             n_smooth=torch.randint(0, len(N_SMOOTH), (), generator=generator, device=dev),
-            source_noise=normal(b, harmonics, mel_len * 2 * samples_per_frame),
+            source_noise=normal(b, harmonics, mel_len * 2 * gen.samples_per_frame),
             slm=SlmAdvNoise(
                 emb_mask=u(b, 1, 1) < EMBEDDING_MASK_PROBA, noise=normal(*latent),
                 step_noise=normal(num_steps - 1, *latent), dur_encoder_keep=slm_enc,
                 dur_lstm_keep=slm_lstm, align_encoder_keep=duration_keep(t_slm)[0],
                 pred_u=u(b), gt_u=u(b)))
+        noise.st_clip_u = u(b)
+        if finetune:
+            noise.asr, noise.text_keep, noise.use_mono = draw_alignment_noise(
+                generator, nets, batch)
+        return noise
 
 
 def duration_losses(dur_logits: torch.Tensor, d_gt: torch.Tensor, text_lengths: torch.Tensor
@@ -192,15 +224,18 @@ def duration_losses(dur_logits: torch.Tensor, d_gt: torch.Tensor, text_lengths: 
 
 def stage2_forward(nets: nn.ModuleDict, mp: ModelParams, lp: LossParams,
                    batch: Dict[str, torch.Tensor], noise: Stage2Noise, mel_len: int,
-                   num_steps: int, diff: bool, joint: bool, sigma_data
+                   num_steps: int, diff: bool, joint: bool, sigma_data, finetune: bool = False
                    ) -> Tuple[torch.Tensor, Dict]:
     """The forward of one step to every generator loss term but the GAN's:
     ``(g_loss_without_gan, aux)``.  ``aux`` holds ``y_rec`` (B, 1,
     T_clip) with its graph, the constants ``wav_target``, ``y_rec_gt`` (the
     recording's clip), ``y_rec_gt_pred``, ``s_trg`` and ``sigma_data`` (the
-    batch's estimate with diffusion, else the one given), and the detached
-    loss terms under the JAX package's metric names.  Run it with the nets
-    that do not train frozen (``Stage2Trainer``)."""
+    batch's estimate with diffusion, else the one given), ``ref_style``
+    (a multispeaker model's reference styles with diffusion, with their
+    graph, else None), and the detached loss terms under the JAX package's
+    metric names.  A multispeaker batch also holds ``ref_waves`` (B, T_ref)
+    and ``ref_frame_lengths`` (B,).  Run it with the nets that do not train
+    frozen (``Stage2Trainer``)."""
     waves = batch["waves"]
     mels = log_mel_spectrogram(waves, DATASET_MEL)
     mels = mels[..., : (mels.shape[-1] // 2) * 2]
@@ -209,10 +244,18 @@ def stage2_forward(nets: nn.ModuleDict, mp: ModelParams, lp: LossParams,
     b, t_text = texts.shape
     dev = texts.device
 
+    if finetune:
+        # the trained alignment (ref: train_finetune.py:380-404)
+        _, s2s_pred, s2s_attn, mono = compute_alignment(nets["text_aligner"], mels, mel_lengths,
+                                                        texts, text_lengths, noise.asr)
+        t_en = text_encoder_apply(nets["text_encoder"], texts, text_lengths, noise.text_keep)
+        asr_full = t_en @ torch.where(noise.use_mono, mono, s2s_attn)
+    else:
+        with torch.no_grad():
+            *_, mono = compute_alignment(nets["text_aligner"], mels, mel_lengths, texts,
+                                         text_lengths)
+            asr_full = text_encoder_apply(nets["text_encoder"], texts, text_lengths) @ mono
     with torch.no_grad():
-        *_, mono = compute_alignment(nets["text_aligner"], mels, mel_lengths, texts,
-                                     text_lengths)
-        asr_full = text_encoder_apply(nets["text_encoder"], texts, text_lengths) @ mono
         gs_full = style_encoder_apply(nets["style_encoder"], mels[:, None], mel_lengths)
     d_gt = mono.sum(-1)
     s_dur_full = style_encoder_apply(nets["predictor_encoder"], mels[:, None], mel_lengths)
@@ -223,6 +266,15 @@ def stage2_forward(nets: nn.ModuleDict, mp: ModelParams, lp: LossParams,
     be = nets["bert_encoder"]
     d_en = linear(bert_dur, be.weight, be.bias).transpose(1, 2)
 
+    ref_style = None
+    if mp.multispeaker and diff:
+        # the same speaker's reference clip (ref: train_second.py:581-592)
+        ref_mels = log_mel_spectrogram(batch["ref_waves"], DATASET_MEL)[:, None]
+        ref_len = batch["ref_frame_lengths"]
+        ref_style = torch.cat([style_encoder_apply(nets["style_encoder"], ref_mels, ref_len),
+                               style_encoder_apply(nets["predictor_encoder"], ref_mels, ref_len)],
+                              dim=-1)
+
     zero = torch.zeros((), device=dev)
     if diff:
         dist = mp.diffusion.dist
@@ -232,13 +284,15 @@ def stage2_forward(nets: nn.ModuleDict, mp: ModelParams, lp: LossParams,
         transformer = nets["diffusion"]["transformer"]
         emb = torch.where(noise.emb_mask, fixed_embedding(transformer, b, t_text), bert_dur)
         loss_diff = S.k_diffusion_loss(
-            lambda x, c_noise: denoiser_apply(transformer, x, c_noise, emb), s_trg[:, None, :],
-            sigma_data, noise.sigma_normals, noise.diff_noise, dist.mean, dist.std)
+            lambda x, c_noise: denoiser_apply(transformer, x, c_noise, emb, features=ref_style),
+            s_trg[:, None, :], sigma_data, noise.sigma_normals, noise.diff_noise, dist.mean,
+            dist.std)
         bert_const = bert_dur.detach()
+        ref_const = None if ref_style is None else ref_style.detach()
         s_preds = S.adpm2_sample(
             noise.sample_noise,
-            S.k_denoise_fn(lambda x, c_noise: denoiser_apply(transformer, x, c_noise,
-                                                             bert_const), sigma_data),
+            S.k_denoise_fn(lambda x, c_noise: denoiser_apply(
+                transformer, x, c_noise, bert_const, features=ref_const), sigma_data),
             S.karras_schedule(num_steps, device=dev), num_steps, noise.sample_step_noise,
             clamp=False)[:, 0, :]
         loss_sty = torch.mean(torch.abs(s_preds - s_trg))
@@ -254,9 +308,11 @@ def stage2_forward(nets: nn.ModuleDict, mp: ModelParams, lp: LossParams,
     p_en = clip_batch(p_full, starts, mel_len)
     gt = clip_batch(mels, starts * 2, mel_len * 2)
     wav_clip = clip_batch(waves, starts * 2 * HOP, mel_len * 2 * HOP)
+    style_src = (clip_batch(mels, clip_starts(noise.st_clip_u, mel_lengths // 2, mel_len) * 2,
+                            mel_len * 2) if mp.multispeaker else gt)
 
-    s_dur_clip = style_encoder_apply(nets["predictor_encoder"], gt[:, None])
-    s_clip = style_encoder_apply(nets["style_encoder"], gt[:, None])
+    s_dur_clip = style_encoder_apply(nets["predictor_encoder"], style_src[:, None])
+    s_clip = style_encoder_apply(nets["style_encoder"], style_src[:, None])
     with torch.no_grad():
         f0_real, _, _ = jdc_apply(nets["pitch_extractor"], gt[:, None])
         n_real = log_norm(gt)
@@ -280,8 +336,14 @@ def stage2_forward(nets: nn.ModuleDict, mp: ModelParams, lp: LossParams,
     metrics = {"mel_loss": loss_mel, "dur_loss": loss_dur, "ce_loss": loss_ce,
                "norm_loss": loss_norm, "F0_loss": loss_f0, "lm_loss": loss_lm,
                "sty_loss": loss_sty, "diff_loss": loss_diff}
+    if finetune:
+        # the aligner's losses (ref: train_finetune.py:547-565)
+        metrics["mono_loss"] = mono_loss(s2s_attn, mono)
+        metrics["s2s_loss"] = s2s_loss(s2s_pred, texts, text_lengths)
+        g_loss = (g_loss + lp.lambda_mono * metrics["mono_loss"]
+                  + lp.lambda_s2s * metrics["s2s_loss"])
     aux = {"y_rec": y_rec, "wav_target": wav_target, "y_rec_gt": wav_clip,
-           "y_rec_gt_pred": y_rec_gt_pred, "s_trg": s_trg,
+           "y_rec_gt_pred": y_rec_gt_pred, "s_trg": s_trg, "ref_style": ref_style,
            "sigma_data": torch.as_tensor(sigma_data, dtype=torch.float32, device=dev),
            "metrics": {k: v.detach() for k, v in metrics.items()}}
     return g_loss, aux
@@ -293,7 +355,9 @@ class Stage2Phase:
     ``start_ds``), the clip in decoder frames, the sampler's step count, and
     the SLM adversarial pass's (the discriminator step instead of the
     generator's, the ground-truth style, the reconstruction as the real
-    side and the cropped real or fake, the alignment's frame budget)."""
+    side and the cropped real or fake, the alignment's frame budget), and
+    the fine-tune recipe's (``finetune``: every net trains, with the
+    alignment)."""
 
     diff: bool
     joint: bool
@@ -305,6 +369,7 @@ class Stage2Phase:
     slm_use_rec: bool = False
     slm_real_alt: bool = False
     slm_frame_capacity: int = 400
+    finetune: bool = False
 
 
 @dataclasses.dataclass
@@ -313,9 +378,6 @@ class Stage2Trainer:
     configs: Dict                   # {"model": ModelParams, "whisper": WhisperConfig}
     nets: nn.ModuleDict
     optimizer: MultiOptimizer
-
-    def __post_init__(self):
-        refuse_untrainable(self.configs["model"])
 
     def check_nets(self) -> None:
         missing = [n for n in STAGE2_NETS if n not in self.nets]
@@ -338,13 +400,13 @@ class Stage2Trainer:
         mp: ModelParams = self.configs["model"]
         if noise is None:
             noise = Stage2Noise.draw(generator, nets, batch, phase.mel_len, phase.num_steps,
-                                     mp.diffusion.embedding_mask_proba)
-        trained = generator_nets(phase.diff, phase.joint)
+                                     mp.diffusion.embedding_mask_proba, phase.finetune)
+        trained = generator_nets(phase.diff, phase.joint, phase.finetune)
         fixed = [nets[n] for n in nets if n not in trained]
         with frozen(fixed):
             g_partial, aux = stage2_forward(nets, mp, self.config.loss_params, batch, noise,
                                             phase.mel_len, phase.num_steps, phase.diff,
-                                            phase.joint, sigma_data)
+                                            phase.joint, sigma_data, phase.finetune)
         metrics = self.generator_update(g_partial, aux, trained, phase.start_ds)
         if phase.joint:
             metrics.update(self.slm_update(batch, aux, phase, noise.slm))
@@ -395,7 +457,8 @@ class Stage2Trainer:
                 aux["s_trg"].detach(), noise, phase.num_steps, phase.slm_use_ind, run_disc,
                 phase.slm_frame_capacity, mel_len=min(adv.min_len // 2, phase.mel_len),
                 use_rec=phase.slm_use_rec, real_alt=phase.slm_real_alt,
-                sigma_data=aux["sigma_data"])
+                sigma_data=aux["sigma_data"],
+                ref_style=None if aux["ref_style"] is None else aux["ref_style"].detach())
             loss = out.d_loss if run_disc else out.gen_loss
             loss.backward()
         if not run_disc:

@@ -4,8 +4,8 @@ train_first.py:457-545, train_second.py:949-1068).
 Stage 1: the mel reconstruction loss with the ground-truth alignment, F0 and
 energy: the aligner and the monotonic path (kernel K3), the text encoder,
 one clip per sample, the pitch extractor, the style encoder, the decoder
-(its AdaIN -> Snake pairs through kernel K1f) and the multi-resolution STFT
-loss.  Stage 2 adds the duration L1 of the prosody predictor against the
+(iSTFTNet or HiFi-GAN, its AdaIN -> Snake pairs through kernel K1f) and the
+multi-resolution STFT loss.  Stage 2 adds the duration L1 of the prosody predictor against the
 monotonic path, and its F0 and energy drive the decoder (with the F0 loss
 against the pitch extractor's).  All in eval form (no dropout, no dither,
 no smoothing), masked as the training steps are.  The clip starts are an
@@ -22,7 +22,7 @@ from torch import nn
 from ..audio.mel import DATASET_MEL, log_mel_spectrogram, log_norm
 from ..config import Config
 from ..losses.stft_loss import multi_resolution_stft_loss
-from ..models.decoder.istftnet import decoder_apply
+from ..models.decoder import decoder_apply
 from ..models.jdc import jdc_apply
 from ..models.plbert import plbert_apply
 from ..models.predictor import prosody_duration_apply, prosody_f0n_apply

@@ -13,6 +13,8 @@ file raises unless ``STYLETTS2_ALLOW_RANDOM_ENCODERS=1``), then a resume or pret
 checkpoint, and trains with ``train.loop.run_stage1`` on the card
 (``--device cpu`` for the CPU).  Metrics go to ``<log_dir>/metrics.jsonl``,
 checkpoints to ``<log_dir>/epoch_1st_*.npz`` and ``first_stage_path``.
+Single-speaker (iSTFTNet) and multispeaker (HiFi-GAN,
+``configs/libritts.yml``) models alike.
 """
 
 from __future__ import annotations
@@ -108,7 +110,6 @@ def main(argv: Optional[Sequence[str]] = None,
     from .train.checkpoint import (convert_reference_checkpoint, load_checkpoint,
                                    load_pretrained_encoders)
     from .train.loop import run_stage1
-    from .train.stage1 import refuse_untrainable
     from .utils import MetricsWriter
 
     if args.device is None and not torch.cuda.is_available():
@@ -117,7 +118,6 @@ def main(argv: Optional[Sequence[str]] = None,
     device = torch.device(args.device or "cuda")
     logging.basicConfig(level=logging.INFO)
     cfg = load_config(args.config_path)
-    refuse_untrainable(cfg.model_params)
     os.makedirs(cfg.log_dir, exist_ok=True)
     cfg = grow_n_token(cfg)
 

@@ -1,7 +1,8 @@
-"""Stage-2 training entry point (the port of ``train_stage2.py``; ref:
-train_second.py).
+"""Stage-2 and fine-tuning entry point (the port of ``train_stage2.py``;
+ref: train_second.py, train_finetune.py).
 
     python -m styletts2_tpu_torch.train_stage2 --config_path configs/ljspeech.yml
+    python -m styletts2_tpu_torch.train_stage2 --config_path configs/ljspeech_ft.yml --finetune
 
 Reads the train and validation lists and their audio as stage 1 does, and
 the out-of-distribution texts of ``data_params.OOD_data`` (``wav|phonemes``
@@ -17,7 +18,15 @@ the style encoder into the prosody style encoder unless
 ``second_stage_load_pretrained``.  Trains with ``train.loop.run_stage2`` on
 the card (``--device cpu`` for the CPU).  Metrics go to
 ``<log_dir>/metrics.jsonl``, checkpoints to ``epoch_2nd_*.npz`` and
-``2nd_stage.npz``, samples to ``<log_dir>/samples``.
+``2nd_stage.npz``, samples to ``<log_dir>/samples``.  Single-speaker
+(iSTFTNet) and multispeaker (HiFi-GAN, ``configs/libritts.yml``) models
+alike.
+
+``--finetune`` runs the fine-tune recipe (``run_stage2(finetune=True)``):
+``epochs`` epochs with every net trained from step 0, resumed from the
+newest ``epoch_ft_*.npz``, else started from ``pretrained_model`` (nets
+only, as without ``--finetune``), with checkpoints ``epoch_ft_*.npz`` and
+``ft_stage.npz`` and ``ft_lr`` for the decoder and the style encoder.
 """
 
 from __future__ import annotations
@@ -40,17 +49,16 @@ def main(argv: Optional[Sequence[str]] = None,
     ap.add_argument("--config_path", default="configs/ljspeech.yml")
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--finetune", action="store_true",
-                    help="train_finetune.py's recipe: not ported (ROADMAP.md)")
+                    help="train_finetune.py's recipe: every net from step 0, with the "
+                         "aligner's losses")
     ap.add_argument("--resume", default=None,
-                    help="checkpoint to resume from (default: latest epoch_2nd_* in log_dir)")
+                    help="checkpoint to resume from (default: latest epoch_2nd_* in log_dir, "
+                         "epoch_ft_* with --finetune)")
     ap.add_argument("--no_resume", action="store_true",
                     help="ignore existing epoch checkpoints, start fresh")
     ap.add_argument("--device", default=None,
                     help="torch device (default: CUDA, which must be present)")
     args = ap.parse_args(argv)
-    if args.finetune:
-        raise NotImplementedError("--finetune (train_finetune.py's recipe) is not ported yet: "
-                                  "see ROADMAP.md, section A")
 
     import torch
 
@@ -61,7 +69,6 @@ def main(argv: Optional[Sequence[str]] = None,
     from .train.checkpoint import (convert_reference_checkpoint, load_checkpoint,
                                    load_pretrained_encoders)
     from .train.loop import run_stage2
-    from .train.stage1 import refuse_untrainable
     from .utils import MetricsWriter
 
     if args.device is None and not torch.cuda.is_available():
@@ -70,7 +77,6 @@ def main(argv: Optional[Sequence[str]] = None,
     device = torch.device(args.device or "cuda")
     logging.basicConfig(level=logging.INFO)
     cfg = load_config(args.config_path)
-    refuse_untrainable(cfg.model_params)
     os.makedirs(cfg.log_dir, exist_ok=True)
     cfg = grow_n_token(cfg)
 
@@ -82,7 +88,8 @@ def main(argv: Optional[Sequence[str]] = None,
 
     resume_from = None
     if not args.no_resume:
-        resume_from = args.resume or find_resume_checkpoint(cfg.log_dir, "2nd")
+        resume_from = args.resume or find_resume_checkpoint(
+            cfg.log_dir, "ft" if args.finetune else "2nd")
 
     # pretrained frozen encoders (ASR/F0/PL-BERT/Whisper) are the base init;
     # the stage-1 or resume checkpoint overwrites where present
@@ -115,7 +122,7 @@ def main(argv: Optional[Sequence[str]] = None,
         return run_stage2(cfg, configs, nets, train_loader, val_loader,
                           max_steps=args.max_steps, log_cb=metrics_logger(writer, log_cb),
                           resume_from=resume_from,
-                          device=device, seed=INIT_SEED)
+                          device=device, seed=INIT_SEED, finetune=args.finetune)
     finally:
         writer.close()
 

@@ -181,7 +181,12 @@ def test_sincos_form_keeps_k1b_accuracy():
 # row lengths, then small rows that cover every instantiation and both
 # long-row forms, with T = 0, 1, 2 and 3 mod 4 (rows starting off a 16-byte
 # boundary), and inputs that are views one float into their storage (the
-# wrapper copies them to an aligned base).
+# wrapper copies them to an aligned base); then the HiFi-GAN decoder's long
+# rows in LibriTTS training: its 64- and 32-channel stages at a clip of 96
+# aligner frames, the last row length the shared-memory cache holds on an
+# H100 ((232448 - 1024) / 4 = 57856 frames of its opt-in limit) and the
+# first it re-reads through L2, and the 32-channel stage at
+# configs/libritts.yml's max_len 300.
 GPU_CASES = [
     ((4, 256, 1920), "rows 128x4", "rows 128x4", 0),
     ((2, 128, 11521), "rows 384x8", "rows 768x4", 0),
@@ -193,6 +198,11 @@ GPU_CASES = [
     ((4, 8, 30002), "long, shared-memory cache", "long, shared-memory cache", 0),
     ((4, 8, 60001), "long, L2 re-read", "long, L2 re-read", 0),
     ((4, 8, 1921), "rows 128x4", "rows 128x4", 1),
+    ((4, 64, 28800), "long, shared-memory cache", "long, shared-memory cache", 0),
+    ((4, 32, 57600), "long, shared-memory cache", "long, shared-memory cache", 0),
+    ((4, 32, 57856), "long, shared-memory cache", "long, shared-memory cache", 0),
+    ((4, 32, 57857), "long, L2 re-read", "long, L2 re-read", 0),
+    ((4, 32, 90000), "long, L2 re-read", "long, L2 re-read", 0),
 ]
 
 

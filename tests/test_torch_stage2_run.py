@@ -1,8 +1,8 @@
 """The port's stage-2 trainer on the CPU at the tiny size: ``run_stage2``
 across ``diff_epoch`` and ``joint_epoch`` with a WD step, a resume equal to
 the uninterrupted run, and the ``train_stage2`` entry point from a
-``first_stage.npz`` that ``train_stage1`` wrote (and its ``--finetune``,
-which is not ported, and its CUDA default).  The real decoder runs here.
+``first_stage.npz`` that ``train_stage1`` wrote (and its ``--finetune`` from
+such a file, and its CUDA default).  The real decoder runs here.
 """
 
 import copy
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from styletts2_tpu_torch.config import Config, SlmAdvParams
-from styletts2_tpu_torch.models.zoo import STAGE2_NETS, init_reference_
+from styletts2_tpu_torch.models.zoo import STAGE2_NETS, flatten, init_reference_
 from styletts2_tpu_torch.train.checkpoint import load_checkpoint
 from styletts2_tpu_torch.train.loop import host_draws, run_stage2
 from styletts2_tpu_torch.train.stage2 import PROSODY, SLM_GENERATOR
@@ -208,11 +208,48 @@ def test_train_stage2_entry_point_from_stage1_on_cpu(tmp_path, monkeypatch):
         "epoch_2nd_00000.npz")
 
 
-def test_train_stage2_refuses_finetune_and_needs_cuda(tmp_path):
-    from styletts2_tpu_torch import train_stage2
+def test_train_stage2_refuses_finetune_and_needs_cuda(tmp_path, monkeypatch):
+    """Formerly the refusal of ``--finetune``: without a device the entry
+    point still needs CUDA, and ``--finetune --device cpu`` now runs the
+    fine-tune recipe on a tiny multispeaker HiFi-GAN config over four
+    speakers, from a ``pretrained_model`` ``.npz`` holding the model's
+    nets (seeded apart from the entry point's own initialisation): one
+    epoch with every net trained, the aligner's losses, validation, samples
+    and the ``ft`` checkpoints."""
+    from styletts2_tpu_torch import train_stage1, train_stage2
+    from styletts2_tpu_torch.config import load_config
+    from styletts2_tpu_torch.models.zoo import build_nets
+    from styletts2_tpu_torch.train.checkpoint import save_checkpoint
+    from styletts2_tpu_torch.train.stage2 import generator_nets
+    from test_torch_libritts_run import libritts_yml
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_stage2.main(["--config_path", str(tmp_path / "absent.yml"), "--finetune"])
     if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError, match="CUDA"):
-            train_stage2.main(["--config_path", str(tmp_path / "absent.yml")])
+        for extra in ([], ["--finetune"]):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                train_stage2.main(["--config_path", str(tmp_path / "absent.yml")] + extra)
+    monkeypatch.setenv("STYLETTS2_ALLOW_RANDOM_ENCODERS", "1")
+    ft_logs = tmp_path / "logs_ft"
+    pretrained = tmp_path / "pretrained.npz"
+    ft_yml = libritts_yml(tmp_path, epochs=1, log_dir=str(ft_logs),
+                          pretrained_model=str(pretrained))
+    mp = train_stage1.grow_n_token(load_config(str(ft_yml))).model_params
+    nets = build_nets(mp, nets=generator_nets(True, True, True))
+    save_checkpoint(str(pretrained), init_reference_(nets, torch.Generator().manual_seed(1)))
+    logs = []
+    state = train_stage2.main(["--config_path", str(ft_yml), "--device", "cpu", "--finetune"],
+                              log_cb=lambda it, m: logs.append((it, m)))
+    assert (state.epoch, state.iters) == (1, 2)
+    assert [it for it, _ in logs] == [1, 2, 2]
+    assert all({"mono_loss", "s2s_loss", "diff_loss"} <= set(m) for _, m in logs[:2])
+    assert "gen_loss_slm" in logs[0][1] and "d_loss_slm" in logs[1][1]
+    assert all(math.isfinite(v) for _, m in logs for v in m.values())
+    params, *_ = load_checkpoint(str(pretrained))
+    for name in ("text_encoder", "text_aligner"):        # trained in the fine-tune recipe
+        want = flatten(params[name])
+        assert any(not np.array_equal(v.numpy(), want[k])
+                   for k, v in state.nets[name].state_dict().items()), name
+    for name in ("epoch_ft_00000.npz", "ft_stage.npz"):
+        _, epoch, iters, extra = load_checkpoint(str(ft_logs / name))
+        assert (epoch, iters) == (1, 2) and math.isfinite(extra["sigma_data"])
+    assert train_stage1.find_resume_checkpoint(str(ft_logs), "ft").endswith(
+        "epoch_ft_00000.npz")

@@ -1,11 +1,11 @@
-"""The trainers' sample dumps and their refusal of what they cannot train.
+"""The trainers' sample dumps, and stage 1 of multispeaker and HiFi-GAN configs.
 
 Stage 1 dumps samples after each validation, as the JAX loop does
 (``styletts2_tpu/train/loop.py:248-256``): ``train_stage1`` builds the
 frozen nets the dump reads (``STAGE1_SAMPLE_NETS``), never steps them and
 saves them for stage 2.  A dump that raises logs a warning and the run
-carries on, in both stages.  Both trainers and both entry points refuse a
-multispeaker or HiFi-GAN config with ``NotImplementedError``.
+carries on, in both stages.  Both trainers and the entry points take a
+multispeaker or HiFi-GAN config.
 """
 
 import logging
@@ -18,7 +18,7 @@ import scipy.io.wavfile as sw
 import torch
 import yaml
 
-from styletts2_tpu_torch import train_stage1, train_stage2
+from styletts2_tpu_torch import train_stage1
 from styletts2_tpu_torch.config import Config, load_config
 from styletts2_tpu_torch.models.zoo import (STAGE1_NETS, STAGE1_SAMPLE_NETS, build_nets,
                                             init_reference_)
@@ -27,8 +27,6 @@ from styletts2_tpu_torch.train.stage1 import Stage1Trainer
 from styletts2_tpu_torch.train.stage2 import Stage2Trainer
 
 torch.set_num_threads(1)
-
-ROOT = Path(__file__).resolve().parents[1]
 
 
 def _corpus(root: Path, n: int, prefix: str, rng) -> None:
@@ -104,24 +102,28 @@ def test_a_failing_dump_warns_and_the_run_goes_on(tiny_yml, monkeypatch, caplog)
     assert all(math.isfinite(p.float().sum()) for p in state.nets.parameters())
 
 
-@pytest.mark.parametrize("overrides", [{"multispeaker": True},
-                                       {"decoder": {"type": "hifigan"}}])
-def test_trainers_refuse_multispeaker_and_hifigan(overrides, tmp_path):
-    spec = yaml.safe_load((ROOT / "configs" / "ljspeech.yml").read_text())
-    spec["log_dir"] = str(tmp_path / "logs")
-    for k, v in overrides.items():
-        if isinstance(v, dict):
-            spec["model_params"][k].update(v)
-        else:
-            spec["model_params"][k] = v
-    yml = tmp_path / "cfg.yml"
+HIFIGAN = {"type": "hifigan", "upsample_rates": [10, 5, 3, 2],
+           "upsample_kernel_sizes": [20, 10, 6, 4], "upsample_initial_channel": 32}
+
+
+@pytest.mark.parametrize("overrides", [{"multispeaker": True}, {"decoder": HIFIGAN}])
+def test_trainers_refuse_multispeaker_and_hifigan(overrides, tiny_yml):
+    """Formerly the refusal of a multispeaker or HiFi-GAN config; both
+    trainers now take such a config, and ``train_stage1`` trains an epoch
+    of it from files: validation, the sample dump and ``first_stage.npz``
+    (the style from a second clip for the multispeaker model, the HiFi-GAN
+    decoder in its training form)."""
+    yml, logs = tiny_yml
+    spec = yaml.safe_load(yml.read_text())
+    spec["model_params"].update(overrides)
     yml.write_text(yaml.safe_dump(spec))
     cfg = load_config(str(yml))
     configs = {"model": cfg.model_params}
-    for trainer in (Stage1Trainer, Stage2Trainer):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            trainer(Config(), configs, torch.nn.ModuleDict(), None)
-    for main in (train_stage1.main, train_stage2.main):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(["--config_path", str(yml), "--device", "cpu"])
-    assert not (tmp_path / "logs").exists()
+    Stage1Trainer(Config(), configs, torch.nn.ModuleDict(), None)
+    Stage2Trainer(Config(), configs, torch.nn.ModuleDict(), None)
+    state = train_stage1.main(["--config_path", str(yml), "--device", "cpu"])
+    assert (state.epoch, state.iters) == (1, 2)
+    assert state.nets["decoder"].generator.cfg.type == cfg.model_params.decoder.type
+    assert (logs / "first_stage.npz").is_file()
+    assert len(list((logs / "samples" / "epoch_00000").glob("*.wav"))) == 6
+    assert all(math.isfinite(p.float().sum()) for p in state.nets.parameters())
