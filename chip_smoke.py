@@ -31,6 +31,18 @@ Phases, each of which exits non-zero when it fails:
    reference clip, ``style_transfer`` requests with 96 launches each, the
    fused decoder against the unfused one, and ``python -m
    styletts2_tpu_torch.demo`` in this process writing a wave file;
+3c. serve bf16: K2's bf16 form against its bf16 plain version at the
+   batch-1 and batched rounds of both decoders, timed beside cuDNN's bf16
+   conv; then both full-width models with their nets cast to bf16 and the
+   engine's ``compute_dtype`` bf16: a batched and a single request, 48 and
+   96 launches of the bf16 form a call, and the bf16 synthesis (F0/N
+   predictor and decoder) at the f32 engine's durations against the f32
+   one by log-mel L1 (``BF16_MEL_L1_BOUND``);
+3d. serve many: ``serve.BatchSynthesizer`` (``max_batch`` 16) over 24
+   seeded LJSpeech-style requests of 8 to 250 tokens across its six
+   buckets, after timing ``InferenceEngine.warmup`` and the first request
+   after it: waves in input order of ``sum(pred_dur) * 600`` samples less
+   ``trim_tail``, 48 launches a chunk;
 4. train: build the full-width LJSpeech stage-1 nets with seeded random
    weights and take 1 + 5 pre-TMA steps through ``train.loop.run_stage1``
    (batch 16, clip 96 aligner frames, f32, TF32 off), counting the kernels'
@@ -99,8 +111,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12           # H100 SXM, f32 outside the tensor cores
 TF32_FLOP_PER_S = 495e12         # H100 SXM, dense TF32 on the tensor cores
 SLEEP_CYCLES = 2_000_000         # ~1 ms of device clock ahead of a device-only timing
+BF16_FLOP_PER_S = 989e12         # H100 SXM, dense bf16 on the tensor cores
 SEED = 0
 STEPS = 5
+BF16_MEL_L1_BOUND = 1.0          # bf16 vs f32 synthesis at equal durations (PERF.md)
 RANDOM_ENCODERS = "STYLETTS2_ALLOW_RANDOM_ENCODERS"
 PHONEMES = [                     # LJSpeech-style IPA, four lengths
     "ðɪ ɛkstɹə pɹɛʃɚ wʌz sʌdn̩.",
@@ -559,6 +573,297 @@ def phase_serve_libritts(torch, K, KA, profile=False, card="", dev="cuda", mp=No
         torch.cuda.empty_cache()
     return {"params": n_params, "compute_style_ms": style_ms, "runs": runs,
             "decoder_parity": parity, "t_mel": t_mel, "demo": demo_out}
+
+
+# K2's bf16 form at the serving rounds (k=11, d=5): the iSTFTNet's stage 1 at
+# batch 1 and batched, the HiFi-GAN's 64 and 32 channels batched
+MRF_BF16_SHAPES = (("stage1", 1, 128, 24000), ("stage1_b4", 4, 128, 192000),
+                   ("hifigan64_b4", 4, 64, 480000), ("hifigan32_b4", 4, 32, 960000))
+
+
+def bf16_ulp(a: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at magnitude ``a``."""
+    return 2.0 ** (math.floor(math.log2(a)) - 7)
+
+
+def phase_kernels_bf16(torch, K):
+    """mrf_round's bf16 form against its bf16 plain version at
+    ``MRF_BF16_SHAPES``: y within 2 bf16 ulps of max|y| (the two sum in
+    other orders in f32), the chained statistics at 1e-3; times beside
+    cuDNN's bf16 conv of the same bf16 activation."""
+    import torch.nn.functional as F
+    from styletts2_tpu_torch.nn.activations import snake
+
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator(dev).manual_seed(SEED)
+    rows = []
+    for stage, b, c, t in MRF_BF16_SHAPES:
+        k, d = 11, 5
+        x = torch.randn((b, c, t), generator=g, device=dev).to(bf)
+        lengths = torch.tensor([t * 4 // 5, t, t // 2, t * 3 // 4][:b], dtype=torch.int32,
+                               device=dev)
+        gamma = 0.1 * torch.randn((b, c), generator=g, device=dev)
+        beta = 0.1 * torch.randn((b, c), generator=g, device=dev)
+        alpha = torch.rand((c,), generator=g, device=dev) + 0.5
+        w = (torch.randn((c, c, k), generator=g, device=dev) / math.sqrt(c * k)).to(bf)
+        bias = 0.1 * torch.randn((c,), generator=g, device=dev)
+        res = torch.randn((b, c, t), generator=g, device=dev).to(bf)
+        mean, rstd = K.masked_stats(x, lengths)
+        args = (x, mean, rstd, gamma, beta, alpha, w, bias, lengths)
+        for residual in (None, res):
+            y, parts = K.mrf_round(*args, k=k, d=d, residual=residual)
+            torch.cuda.synchronize()
+            y_ref, parts_ref = K.mrf_round_plain(*args, k=k, d=d, residual=residual)
+            check(y.dtype == bf, f"mrf_round bf16 {stage}: y is {y.dtype}")
+            err = float((y.float() - y_ref.float()).abs().max())
+            scale = float(y_ref.float().abs().max())
+            check(err <= 2 * bf16_ulp(scale),
+                  f"mrf_round bf16 {stage}: max|err| {err} > 2 bf16 ulps of {scale}")
+            for got, want in zip(K.stats_from_partials(parts, lengths, t),
+                                 K.stats_from_partials(parts_ref, lengths, t)):
+                torch.testing.assert_close(got, want, atol=1e-3 * scale, rtol=1e-3)
+            rows.append({"stage": stage, "residual": residual is not None,
+                         "max_abs_err": err, "max_abs_y": scale})
+        act = snake((1 + gamma[:, :, None]) * ((x.float() - mean[:, :, None])
+                                               * rstd[:, :, None]) + beta[:, :, None],
+                    alpha[None, :, None]).to(bf)
+        pad, bias_bf = (k * d - d) // 2, bias.to(bf)
+        ms = cuda_ms(lambda: K.mrf_round(*args, k=k, d=d, residual=res))
+        device_ms = cuda_ms(lambda: K.mrf_round(*args, k=k, d=d, residual=res),
+                            device_only=True)
+        plain_ms = cuda_ms(lambda: K.mrf_round_plain(*args, k=k, d=d, residual=res))
+        library_ms = cuda_ms(lambda: F.conv1d(act, w, bias_bf, padding=pad, dilation=d))
+        flops = 2.0 * b * c * c * k * t
+        # bf16 x, residual, y and weights; f32 statistics, plane, bias and partials
+        nbytes = (2.0 * (3 * b * c * t + c * c * k)
+                  + 4.0 * (4 * b * c + 2 * c + b + b * K.n_tiles(t) * 3 * c))
+        least_ms, bound_by = bound_ms(nbytes, flops, BF16_FLOP_PER_S)
+        rows.append({"stage": stage, "shape": f"B={b} C={c} T={t} k={k} d={d} +residual bf16",
+                     "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": least_ms, "bound_by": bound_by,
+                     "gflop": flops / 1e9, "mbytes": nbytes / 1e6})
+        print(f"mrf_round bf16 {stage} (B={b} C={c} T={t} k={k} d={d}): {ms:.4f} ms (device "
+              f"{device_ms:.4f}), plain {plain_ms:.4f} ms, F.conv1d bf16 {library_ms:.4f} ms, "
+              f"bound {least_ms:.4f} ms ({bound_by})", flush=True)
+    return rows
+
+
+def phase_serve_bf16(torch, K, card="", dev="cuda", models=None):
+    """Both full-width serving models with their nets cast to bf16 and the
+    engine's ``compute_dtype`` bf16 (seeded random weights, the output conv
+    scaled as in the f32 phases): after a warm call of each, the four
+    sentences batched and one alone, each with ``launches`` bf16 rounds of
+    mrf_round; then the
+    bf16 synthesis (F0/N predictor and decoder) at the f32 engine's
+    durations against the f32 synthesis, by log-mel L1 per request.
+    ``models`` ((name, ModelParams, build kwargs) triples) and ``dev`` size
+    a rehearsal on the CPU, where the wrappers launch nothing."""
+    import copy
+
+    import numpy as np
+    from styletts2_tpu_torch.config import ModelParams, libritts_config
+    from styletts2_tpu_torch.infer import SAMPLES_PER_FRAME, InferenceEngine
+    from styletts2_tpu_torch.models.plbert import PLBertConfig
+    from styletts2_tpu_torch.models.zoo import build_nets, init_random_
+
+    on_card = torch.device(dev).type == "cuda"
+    pl = PLBertConfig()
+    models = models or (
+        ("ljspeech", ModelParams(), dict(decoder_width=1024, decoder_asr_res_ch=64)),
+        ("libritts", libritts_config().model_params, {}))
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    out = {}
+    for name, mp, build_kw in models:
+        launches_per_call = (4 * (6 + 3 * 6) if mp.decoder.type == "hifigan" else 48) \
+            if on_card else 0
+        nets = init_random_(build_nets(mp, pl, **build_kw), SEED)
+        with torch.no_grad():
+            nets["decoder"].generator.conv_post.weight_g.mul_(0.05)
+        device = None if on_card else dev                       # None: the GPU
+        eng32 = InferenceEngine(nets, mp, pl, device=device)
+        eng16 = InferenceEngine(copy.deepcopy(nets).to(torch.bfloat16), mp, pl,
+                                device=device, compute_dtype=torch.bfloat16)
+        ref_s = eng16.compute_style(reference_clip()) if mp.multispeaker else None
+        check(ref_s is None or ref_s.dtype == torch.bfloat16, "compute_style not in bf16")
+
+        def request(texts):
+            K.launches = K.bf16_launches = 0
+            sync()
+            t0 = time.perf_counter()
+            wavs, durs = eng16.synthesize(texts, diffusion_steps=STEPS, ref_s=ref_s,
+                                          return_durations=True)
+            sync()
+            wall = time.perf_counter() - t0
+            if isinstance(wavs, np.ndarray):
+                wavs, durs = [wavs], [durs]
+            for w, dur in zip(wavs, durs):
+                check(w.dtype == np.float32 and bool(np.isfinite(w).all()),
+                      f"bf16 {name}: a {w.dtype} or non-finite waveform")
+                check(len(w) == int(np.sum(dur)) * SAMPLES_PER_FRAME,
+                      f"bf16 {name}: waveform length {len(w)} != sum(pred_dur) * 600")
+            check(K.launches == K.bf16_launches == launches_per_call,
+                  f"bf16 {name}: mrf_round launched {K.launches} times ({K.bf16_launches} "
+                  f"bf16), not {launches_per_call}, in one call")
+            audio_s = sum(len(w) for w in wavs) / 24000.0
+            return {"batch": len(wavs), "launches": K.launches,
+                    "bf16_launches": K.bf16_launches, "wall_s": wall, "audio_s": audio_s,
+                    "audio_s_per_s": audio_s / wall,
+                    "max_abs_wav": max(float(np.abs(w).max()) for w in wavs)}
+
+        request(PHONEMES)                                      # warm calls
+        request(PHONEMES[2])
+        runs = {"batched": request(PHONEMES), "single": request(PHONEMES[2])}
+
+        # the bf16 synthesis at the f32 engine's durations against the f32 one
+        with torch.inference_mode():
+            tokens, lengths_np = eng32.tokenize(PHONEMES)
+            lengths = torch.from_numpy(lengths_np).to(eng32.device)
+            gen = torch.Generator(eng32.device).manual_seed(SEED)
+            shape = (len(PHONEMES), 1, 2 * mp.style_dim)
+            noise = torch.randn(shape, generator=gen, device=eng32.device)
+            step_noise = torch.randn((STEPS - 1, *shape), generator=gen, device=eng32.device)
+            ref32 = None if ref_s is None else eng32.compute_style(reference_clip()).expand(
+                len(PHONEMES), -1)
+            t_en, d, s, ref, _, pred_dur = eng32._frontend(tokens, lengths, noise, step_noise,
+                                                           STEPS, 1.0, None, 0.0, ref32)
+            frames = pred_dur.sum(1).cpu().numpy()
+            t_mel = eng32.frame_capacity(int(lengths_np.max()), int(frames.max()))
+            w32 = eng32._synthesis(t_en, d, s, ref, pred_dur, lengths, t_mel).float()
+            K.bf16_launches = 0
+            w16 = eng16._synthesis(t_en, d, s, ref, pred_dur, lengths, t_mel).float()
+            check(K.bf16_launches == launches_per_call,
+                  f"bf16 {name} synthesis launched {K.bf16_launches} bf16 rounds")
+        mel_l1 = []
+        for i in range(len(PHONEMES)):
+            m = int(frames[i]) * SAMPLES_PER_FRAME
+            mel_l1.append(float((log_mel(torch, w16[i, :m]) - log_mel(torch, w32[i, :m]))
+                                .abs().mean()))
+        max_abs = [float((w16[i] - w32[i]).abs().max()) for i in range(len(PHONEMES))]
+        check(max(mel_l1) < BF16_MEL_L1_BOUND,
+              f"bf16 {name}: log-mel L1 against f32 {mel_l1} over {BF16_MEL_L1_BOUND}")
+        out[name] = {"runs": runs, "mel_l1_vs_f32": mel_l1, "max_abs_vs_f32": max_abs,
+                     "max_abs_wav_f32": float(w32.abs().max()), "t_mel": t_mel}
+        b = runs["batched"]
+        print(f"serve bf16 {name}: {b['audio_s_per_s']:.2f} audio-s/s (batch {b['batch']}, "
+              f"{b['audio_s']:.3f} s of audio in {b['wall_s']:.6f} s), batch 1 "
+              f"{runs['single']['wall_s']:.6f} s; log-mel L1 vs f32 {mel_l1}, max|diff| "
+              f"{max_abs}; {card}", flush=True)
+        del eng32, eng16, nets, w32, w16
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def serve_many_requests(rng, n_per_bucket: int = 4, buckets=(32, 64, 96, 128, 192, 256)):
+    """Seeded LJSpeech-style phoneme strings, ``n_per_bucket`` in each token
+    bucket from 8 to 250 tokens (the leading pad included): prefixes of the
+    smoke's sentences repeated."""
+    text = " ".join(PHONEMES * 8)
+    out, lo = [], 8
+    for hi in buckets:
+        for n in rng.integers(lo, min(hi, 250) + 1, n_per_bucket):
+            symbols, cut = 0, 0
+            while symbols < n - 1:                # the cleaner drops spaces
+                symbols += text[cut] != " "
+                cut += 1
+            out.append(text[:cut])
+        lo = hi + 1
+    order = rng.permutation(len(out))
+    return [out[i] for i in order]
+
+
+def phase_serve_many(torch, K, card="", dev="cuda", mp=None, build_kw=None,
+                     trim_tail: int = 50):
+    """``BatchSynthesizer`` (max_batch 16, the six default buckets) over 24
+    seeded LJSpeech-style requests of 8 to 250 tokens at full width, after
+    ``InferenceEngine.warmup`` and one request: waves in input order of
+    ``sum(pred_dur) * 600 - trim_tail`` samples, each chunk with 48
+    mrf_round launches.  ``mp``/``build_kw``/``dev`` size a CPU rehearsal."""
+    import numpy as np
+    from styletts2_tpu_torch.config import ModelParams
+    from styletts2_tpu_torch.infer import SAMPLES_PER_FRAME, InferenceEngine
+    from styletts2_tpu_torch.models.plbert import PLBertConfig
+    from styletts2_tpu_torch.models.zoo import build_nets, init_random_
+    from styletts2_tpu_torch.serve import BatchSynthesizer
+
+    on_card = torch.device(dev).type == "cuda"
+    mp, pl = mp or ModelParams(), PLBertConfig()
+    nets = init_random_(build_nets(mp, pl, **(build_kw or dict(
+        decoder_width=1024, decoder_asr_res_ch=64))), SEED)
+    with torch.no_grad():
+        nets["decoder"].generator.conv_post.weight_g.mul_(0.05)
+    eng = InferenceEngine(nets, mp, pl, device=None if on_card else dev)
+    launches_per_call = 48 if on_card else 0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    sync()
+    t0 = time.perf_counter()
+    eng.warmup()
+    sync()
+    warmup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    eng.synthesize(PHONEMES[2], diffusion_steps=STEPS)
+    sync()
+    first_s = time.perf_counter() - t0
+
+    requests = serve_many_requests(np.random.default_rng(SEED))
+    n_tokens = [len(eng.tokens_from_phonemes(p)) for p in requests]
+    bs = BatchSynthesizer(eng, max_batch=16)
+    chunks = bs.chunks(requests)
+    buckets = sorted({bs._bucket_of(n) for n in n_tokens})
+    check(len(requests) == 24 and min(n_tokens) >= 8 and max(n_tokens) <= 250
+          and buckets == bs.length_buckets, f"requests of {n_tokens} tokens in {buckets}")
+    calls = []
+    synthesize = eng.synthesize
+
+    def recorded(texts, **kw):                 # each chunk's durations and launches
+        K.launches = 0
+        wavs, durs = synthesize(texts, return_durations=True, **kw)
+        calls.append({"texts": list(texts), "durs": durs, "launches": K.launches,
+                      "wavs": wavs})
+        return wavs
+
+    eng.synthesize = recorded
+    try:
+        sync()
+        t0 = time.perf_counter()
+        waves = bs.synthesize_many(requests, diffusion_steps=STEPS, trim_tail=trim_tail)
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        del eng.synthesize
+    check(len(calls) == len(chunks), f"{len(calls)} engine calls for {len(chunks)} chunks")
+    for chunk, call in zip(chunks, calls):
+        check(call["texts"] == [requests[i] for i in chunk], "chunks out of order")
+        check(call["launches"] == launches_per_call,
+              f"a chunk launched mrf_round {call['launches']} times")
+        for i, dur, w in zip(chunk, call["durs"], call["wavs"]):
+            check(waves[i] is w, f"request {i}'s wave is not its own")
+            check(len(w) == int(np.sum(dur)) * SAMPLES_PER_FRAME - trim_tail
+                  and bool(np.isfinite(w).all()),
+                  f"request {i}: {len(w)} samples for {int(np.sum(dur))} frames")
+    audio_s = sum(len(w) for w in waves) / 24000.0
+    out = {"warmup_s": warmup_s, "first_request_s": first_s, "wall_s": wall,
+           "audio_s": audio_s, "audio_s_per_s": audio_s / wall,
+           "chunks": [len(c) for c in chunks], "tokens": n_tokens,
+           "launches_per_chunk": [c["launches"] for c in calls]}
+    print(f"serve many: {out}", flush=True)
+    print(f"serve many: {audio_s / wall:.2f} audio-s/s over {len(requests)} requests in "
+          f"{len(chunks)} chunks; warmup {warmup_s:.3f} s, first request after it "
+          f"{first_s:.3f} s; {card}", flush=True)
+    del eng, nets
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_train_kernels(torch, KA, KM):
@@ -1477,6 +1782,8 @@ def main() -> None:
     print(f"mrf_round SASS tensor-core instructions: {sass}", flush=True)
     check(sum(n for op, n in sass.items() if "TF32" in op) > 0,
           f"libmrf_round has no TF32 tensor-core instruction: {sass}")
+    check(sum(n for op, n in sass.items() if "BF16" in op) > 0,
+          f"libmrf_round has no bf16 tensor-core instruction: {sass}")
 
     profile = "--profile" in sys.argv[1:]
     kernel_rows = phase_kernels(torch, K)
@@ -1485,6 +1792,9 @@ def main() -> None:
     gc.collect()                          # the LJSpeech nets go before LibriTTS's
     torch.cuda.empty_cache()
     serve_libritts = phase_serve_libritts(torch, K, KA, profile=profile, card=card)
+    bf16_kernel_rows = phase_kernels_bf16(torch, K)
+    serve_bf16 = phase_serve_bf16(torch, K, card=card)
+    serve_many = phase_serve_many(torch, K, card=card)
     train = phase_train(torch, KA, KM, K, profile=profile, card=card)
     gc.collect()                          # the pre-TMA nets and optimizer go first
     torch.cuda.empty_cache()
@@ -1515,6 +1825,17 @@ def main() -> None:
         "bound_by": s1["bound_by"], "library_ms": s1["library_ms"], "shape": s1["shape"],
         "bound_f32_ms": s1["bound_f32_ms"], "library_tf32_ms": s1["library_tf32_ms"],
     }]
+    b1 = {r["stage"]: r for r in bf16_kernel_rows if "ms" in r}["stage1_b4"]
+    kernels.append({
+        "name": "mrf_round_bf16", "route": "cuda",
+        "source": "styletts2_tpu_torch/csrc/mrf_round.cu",
+        "replaces": "styletts2_tpu/ops/pallas/mrf_round_kernel.py:183",
+        "launches": serve_bf16["ljspeech"]["runs"]["batched"]["bf16_launches"],
+        "launches_libritts": serve_bf16["libritts"]["runs"]["batched"]["bf16_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in bf16_kernel_rows if "max_abs_err" in r),
+        "ms": b1["ms"], "device_ms": b1["device_ms"], "plain_ms": b1["plain_ms"],
+        "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
+        "library_ms": b1["library_ms"], "shape": b1["shape"]})
     k1 = next(r for r in train_kernel_rows if r.get("shape") == "B=16 C=128 T=11521"
               and "fwd_ms" in r)
     k1_err = [r for r in train_kernel_rows if "fwd_max_abs_err" in r]
@@ -1552,7 +1873,8 @@ def main() -> None:
         {"card": card, "build_s": build_s, "nvcc_logs": logs, "mrf_round_sass_mma": sass,
          "kernel_checks": kernel_rows,
          "train_kernel_checks": train_kernel_rows, "serve": serve,
-         "serve_libritts": serve_libritts, "train": train,
+         "serve_libritts": serve_libritts, "bf16_kernel_checks": bf16_kernel_rows,
+         "serve_bf16": serve_bf16, "serve_many": serve_many, "train": train,
          "train_tma": train_tma, "train2": train2, "train_files": train_files,
          "train_libritts": train_libritts,
          "kernels": kernels}, indent=1))

@@ -74,10 +74,28 @@
 //   operands (frames on M, 32 channels on N) would avoid it at the price of
 //   a second operand layout, which this simple form leaves for later.  At
 //   C_in = C_out <= 64 the activation still runs once per element.
+//
+// The bf16 form (mrf_round_bf16, the TPU kernel run on bf16 x_pad, w and
+// residual: mrf_round_kernel.py:95-160).  x, w, residual and y are bf16; the
+// statistics, the AdaIN/Snake plane and bias stay f32, as pack_plane makes
+// them.  AdaIN -> Snake runs in f32 with the full-precision sinf and is
+// rounded to bf16 (RNE) as it is stored for the tensor cores; wgmma
+// m64nNk16 bf16 multiplies it by the bf16 weights with f32 accumulators, one
+// product per pair (no split); bias and residual are added in f32, y is
+// rounded to bf16, and the partials are taken from the rounded y, as the TPU
+// kernel takes them from the stored value.  It keeps the f32 form's grid,
+// tiling, two-stage pipeline and epilogue.  A chunk is 16 input channels
+// (one k16 step), kept as [8-channel half][frame][8 channels], 16 bytes a
+// frame as in the TF32 planes, so a tap is still a descriptor offset of
+// 16*k*d bytes; the weights are staged [k][co][16 ci] with the same half
+// swap.  It moves half the f32 form's bytes and runs its products at the
+// card's bf16 rate (989 TFLOP/s dense against 495/3 for 3xTF32): the
+// batched serving rounds become bound by bytes at C <= 128.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16_wgmma.cuh"
 #include "tf32_wgmma.cuh"
 
 namespace {
@@ -327,71 +345,351 @@ mrf_round_kernel(const float* __restrict__ x, const float* __restrict__ mean,
   }
 }
 
+constexpr int CI_CHUNK_BF16 = 16;  // input channels per stage of the bf16 form: one k16 step
+
+template <int NT, int K, int WG>
+struct TileBf16 {
+  static constexpr int THREADS = 128 * WG;
+  static constexpr int CO_TILE = 64 * WG;
+  static constexpr int ROW = NT + 2 * MAX_PAD;           // frames of x staged per channel
+  static constexpr int RAW_STRIDE = ROW + 8;             // bf16; rows of whole 16 bytes
+  static constexpr int RAW_BYTES = CI_CHUNK_BF16 * RAW_STRIDE * 2;
+  static constexpr int HALF_BYTES = 16 * ROW + 64;       // one 8-channel half, 16 bytes a frame
+  static constexpr int PLANE_BYTES = 2 * HALF_BYTES;
+  static constexpr int STAGE_BYTES = PLANE_BYTES + K * CO_TILE * 32;  // + weights [k][co][16 ci]
+  static constexpr int Y_STRIDE = NT + 8;                // = 8 (mod 32) words
+  static constexpr int MAIN = RAW_BYTES + 2 * STAGE_BYTES;
+  static constexpr int EPILOGUE = 4 * CO_TILE * Y_STRIDE;
+  static constexpr int BYTES = MAIN > EPILOGUE ? MAIN : EPILOGUE;
+  static constexpr int ACC = NT / 2;                     // accumulators per thread
+  static_assert(RAW_BYTES % 128 == 0 && HALF_BYTES % 16 == 0, "16-byte aligned stages");
+};
+
+template <int NT, int K, int WG>
+__global__ void __launch_bounds__(128 * WG, 1)
+mrf_round_bf16_kernel(const uint16_t* __restrict__ x, const float* __restrict__ mean,
+                      const float* __restrict__ rstd, const float* __restrict__ gamma,
+                      const float* __restrict__ beta, const float* __restrict__ alpha,
+                      const uint16_t* __restrict__ wt, const float* __restrict__ bias,
+                      const int* __restrict__ lengths, const uint16_t* __restrict__ residual,
+                      uint16_t* __restrict__ y, float* __restrict__ parts, int c_in, int c_out,
+                      int t, int d, int vec_x) {
+  using L = TileBf16<NT, K, WG>;
+  constexpr int THREADS = L::THREADS;
+  constexpr int CO_TILE = L::CO_TILE;
+  extern __shared__ __align__(128) unsigned char smem_b[];
+  uint16_t* raw = reinterpret_cast<uint16_t*>(smem_b);  // raw x of the next chunk
+  unsigned char* stages = smem_b + L::RAW_BYTES;         // 2 x (planes, weights)
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int t0 = blockIdx.x * NT;
+  const int co0 = blockIdx.y * CO_TILE;
+  const int b = blockIdx.z;
+  const int pad = (K * d - d) / 2;
+  const int n_chunks = c_in / CI_CHUNK_BF16;
+
+  // Raw x of channels [ci0, ci0 + 16) over frames [t0 - MAX_PAD, t0 + NT + MAX_PAD)
+  // into `raw`, and the weights (k, co0 + co, ci0 .. ci0 + 15) into `ws`.
+  auto load = [&](int chunk, unsigned char* ws) {
+    const int ci0 = chunk * CI_CHUNK_BF16;
+    const uint16_t* xb = x + ((size_t)b * c_in + ci0) * t;
+    const int p0 = t0 - MAX_PAD;
+    if (vec_x) {  // t % 8 == 0 and p0 % 8 == 0: each 8-frame vector is all in or all out
+      constexpr int V = L::ROW / 8;
+      for (int i = tid; i < CI_CHUNK_BF16 * V; i += THREADS) {
+        const int r = i / V;
+        const int v = i - r * V;
+        const int p = p0 + 8 * v;
+        const bool ok = p >= 0 && p < t;
+        tf32::cp_async16(raw + r * L::RAW_STRIDE + 8 * v, ok ? xb + (size_t)r * t + p : x, ok);
+      }
+    } else {  // 2-byte elements: plain loads, visible after the next __syncthreads
+      for (int i = tid; i < CI_CHUNK_BF16 * L::ROW; i += THREADS) {
+        const int r = i / L::ROW;
+        const int s = i - r * L::ROW;
+        const int p = p0 + s;
+        raw[r * L::RAW_STRIDE + s] = p >= 0 && p < t ? xb[(size_t)r * t + p] : (uint16_t)0;
+      }
+    }
+    for (int i = tid; i < K * CO_TILE * 2; i += THREADS) {
+      const int h = i & 1;
+      const int row = i >> 1;  // k * CO_TILE + co
+      const int co = row % CO_TILE;
+      const int kk = row / CO_TILE;
+      const bool ok = co0 + co < c_out;  // rows past C_out (C_out 32) are zeros
+      const uint16_t* src =
+          ok ? wt + ((size_t)kk * c_out + co0 + co) * c_in + ci0 + 8 * h : wt;
+      tf32::cp_async16(ws + row * 32 + 16 * (h ^ ((co >> 2) & 1)), src, ok);
+    }
+    tf32::cp_async_commit();
+  };
+
+  // AdaIN + Snake of `raw` in f32, rounded to bf16, into the plane over the
+  // frames the taps read; 0 outside [0, T).  Plane row s holds 8 channels in
+  // 16 bytes.
+  auto activate = [&](int chunk, unsigned char* plane) {
+    const int r = tid & 15;  // one channel per thread
+    const int ci = chunk * CI_CHUNK_BF16 + r;
+    const int bc = b * c_in + ci;
+    const float g1 = 1.f + gamma[bc], mu = mean[bc], rs = rstd[bc], be = beta[bc];
+    const float al = alpha[ci];
+    const uint16_t* rw = raw + r * L::RAW_STRIDE;
+    unsigned char* dst = plane + (r >> 3) * L::HALF_BYTES + 2 * (r & 7);
+    const int s0 = MAX_PAD - pad;
+    for (int j = tid >> 4; j < NT + 2 * pad; j += THREADS / 16) {
+      const int s = s0 + j;
+      const int p = t0 - MAX_PAD + s;
+      float a = 0.f;
+      if (p >= 0 && p < t) {
+        const float u = g1 * ((bf16w::to_float(rw[s]) - mu) * rs) + be;
+        const float sn = sinf(al * u);  // full-precision sine: |alpha*u| is unbounded
+        a = u + sn * sn / al;
+      }
+      *reinterpret_cast<uint16_t*>(dst + 16 * s) = bf16w::bits(a);
+    }
+    tf32::fence_proxy_async();  // the plane is read by wgmma
+  };
+
+  float acc[L::ACC];
+#pragma unroll
+  for (int i = 0; i < L::ACC; ++i) acc[i] = 0.f;
+
+  load(0, stages + L::PLANE_BYTES);
+  tf32::cp_async_wait<0>();
+  __syncthreads();
+  activate(0, stages);
+  __syncthreads();
+  if (n_chunks > 1) load(1, stages + L::STAGE_BYTES + L::PLANE_BYTES);
+
+  // this lane's rows of A: output channels g and g + 8 of its warp's 16; a
+  // weight row is 8 words, two 4-word halves swapped on bit 2 of the channel
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int sw = 4 * ((g >> 2) & 1);
+  const int a_row = (warp >> 2) * 64 + (warp & 3) * 16 + g;
+  for (int c = 0; c < n_chunks; ++c) {
+    const unsigned char* plane = stages + (c & 1) * L::STAGE_BYTES;
+    const uint32_t* wrow = reinterpret_cast<const uint32_t*>(plane + L::PLANE_BYTES) + a_row * 8;
+    const uint32_t b_addr = static_cast<uint32_t>(__cvta_generic_to_shared(plane));
+    uint32_t a[K][4];
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      const uint32_t* wk = wrow + kk * CO_TILE * 8;
+      a[kk][0] = wk[sw + q];                   // row g,     ci 2q, 2q + 1
+      a[kk][1] = wk[8 * 8 + sw + q];           // row g + 8
+      a[kk][2] = wk[(4 - sw) + q];             // row g,     ci 2q + 8, 2q + 9
+      a[kk][3] = wk[8 * 8 + (4 - sw) + q];     // row g + 8
+    }
+    tf32::fence_operands(acc);
+    tf32::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      // B rows start at frame t0 + kk*d - pad: plane row MAX_PAD - pad + kk*d
+      const uint32_t shift = 16u * static_cast<uint32_t>(MAX_PAD - pad + kk * d);
+      bf16w::mma<NT>(acc, a[kk], tf32::desc(b_addr + shift, L::HALF_BYTES, 128));
+    }
+    tf32::wgmma_commit();
+    // while the tensor cores run chunk c: activate chunk c + 1, load c + 2
+    if (c + 1 < n_chunks) {
+      tf32::cp_async_wait<0>();
+      __syncthreads();
+      activate(c + 1, stages + ((c + 1) & 1) * L::STAGE_BYTES);
+      __syncthreads();  // raw is free; the weights of chunk c are in registers
+      if (c + 2 < n_chunks) load(c + 2, stages + (c & 1) * L::STAGE_BYTES + L::PLANE_BYTES);
+    }
+    tf32::wgmma_wait<0>();
+    tf32::fence_operands(acc);
+  }
+
+  // accumulators -> ys[co][t] (the stages are free once every warp is here)
+  __syncthreads();
+  float* ys = reinterpret_cast<float*>(smem_b);
+#pragma unroll
+  for (int i = 0; i < NT / 8; ++i) {
+    *reinterpret_cast<float2*>(ys + a_row * L::Y_STRIDE + 8 * i + 2 * q) =
+        make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(ys + (a_row + 8) * L::Y_STRIDE + 8 * i + 2 * q) =
+        make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  __syncthreads();
+  if (residual != nullptr) {  // the residual tile in f32, with every load in flight at once
+    constexpr int PER = CO_TILE * NT / THREADS;
+    float rv[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * THREADS;
+      const int n = i / NT;
+      const int tt = t0 + (i - n * NT);
+      rv[j] = tt < t && co0 + n < c_out
+                  ? bf16w::to_float(residual[((size_t)b * c_out + co0 + n) * t + tt]) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int i = tid + j * THREADS;
+      const int n = i / NT;
+      ys[n * L::Y_STRIDE + (i - n * NT)] += rv[j];
+    }
+    __syncthreads();
+  }
+
+  // bias, y rounded to bf16 and stored; partials of the rounded y over the
+  // valid frames of each 64-frame tile
+  const int len = min(lengths[b], t);
+  const int n_stat = (t + STAT_TILE - 1) / STAT_TILE;
+  for (int n = warp; n < CO_TILE && co0 + n < c_out; n += THREADS / 32) {
+    const int co = co0 + n;
+    const float bv = bias[co];
+    const size_t row = ((size_t)b * c_out + co) * t;
+#pragma unroll
+    for (int sub = 0; sub < NT / STAT_TILE; ++sub) {
+      const int tile = blockIdx.x * (NT / STAT_TILE) + sub;
+      if (tile >= n_stat) break;
+      float v[2];
+      float s1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int tl = sub * STAT_TILE + lane + 32 * j;
+        const int tt = t0 + tl;
+        const uint16_t h = bf16w::bits(ys[n * L::Y_STRIDE + tl] + bv);
+        v[j] = bf16w::to_float(h);
+        if (tt < t) y[row + tt] = h;
+        if (tt < len) s1 += v[j];
+      }
+      s1 = warp_sum(s1);
+      const int n_valid = max(0, min(len - tile * STAT_TILE, STAT_TILE));
+      const float mu = s1 / fmaxf((float)n_valid, 1.f);
+      float m2 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float dv = v[j] - mu;
+        if (t0 + sub * STAT_TILE + lane + 32 * j < len) m2 += dv * dv;
+      }
+      m2 = warp_sum(m2);
+      if (lane == 0) {
+        float* pp = parts + ((size_t)b * n_stat + tile) * 3 * c_out + co;
+        pp[0] = s1;
+        pp[c_out] = m2;
+        pp[2 * c_out] = (float)n_valid;
+      }
+    }
+  }
+}
+
 struct Args {
-  const float *x, *mean, *rstd, *gamma, *beta, *alpha, *wt, *bias;
+  const void* x;  // float or bf16, as are wt, residual and y
+  const float *mean, *rstd, *gamma, *beta, *alpha;
+  const void* wt;
+  const float* bias;
   const int* lengths;
-  const float* residual;
-  float *y, *parts;
+  const void* residual;
+  void* y;
+  float* parts;
   int batch, c_in, c_out, t, k, d;
   cudaStream_t stream;
 };
 
 // Above 48 KB of dynamic shared memory a kernel has to ask for it.  Asking
 // also loads the kernel, so the first request that runs it does not.
-template <int NT, int K, int WG>
+template <int NT, int K, int WG, bool BF16>
 cudaError_t allow_smem() {
-  return cudaFuncSetAttribute(mrf_round_kernel<NT, K, WG>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Tile<NT, K, WG>::BYTES);
+  if constexpr (BF16)
+    return cudaFuncSetAttribute(mrf_round_bf16_kernel<NT, K, WG>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                TileBf16<NT, K, WG>::BYTES);
+  else
+    return cudaFuncSetAttribute(mrf_round_kernel<NT, K, WG>,
+                                cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                Tile<NT, K, WG>::BYTES);
 }
 
-template <int WG>
+template <int WG, bool BF16>
 cudaError_t allow_smem_wg() {
   const cudaError_t errs[] = {
-      allow_smem<64, 3, WG>(),  allow_smem<64, 7, WG>(),  allow_smem<64, 11, WG>(),
-      allow_smem<128, 3, WG>(), allow_smem<128, 7, WG>(), allow_smem<128, 11, WG>(),
-      allow_smem<256, 3, WG>(), allow_smem<256, 7, WG>(), allow_smem<256, 11, WG>()};
+      allow_smem<64, 3, WG, BF16>(),  allow_smem<64, 7, WG, BF16>(),
+      allow_smem<64, 11, WG, BF16>(), allow_smem<128, 3, WG, BF16>(),
+      allow_smem<128, 7, WG, BF16>(), allow_smem<128, 11, WG, BF16>(),
+      allow_smem<256, 3, WG, BF16>(), allow_smem<256, 7, WG, BF16>(),
+      allow_smem<256, 11, WG, BF16>()};
   for (cudaError_t e : errs)
     if (e != cudaSuccess) return e;
   return cudaSuccess;
 }
 
+template <bool BF16>
 cudaError_t allow_smem_all() {
-  const cudaError_t e = allow_smem_wg<1>();
-  return e != cudaSuccess ? e : allow_smem_wg<2>();
+  const cudaError_t e = allow_smem_wg<1, BF16>();
+  return e != cudaSuccess ? e : allow_smem_wg<2, BF16>();
 }
 
-template <int NT, int K, int WG>
+template <int NT, int K, int WG, bool BF16>
 int launch(const Args& a) {
-  using L = Tile<NT, K, WG>;
-  const int vec_x = (a.t % 4 == 0) && (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
-  const dim3 grid((a.t + NT - 1) / NT, (a.c_out + L::CO_TILE - 1) / L::CO_TILE, a.batch);
-  mrf_round_kernel<NT, K, WG><<<grid, L::THREADS, L::BYTES, a.stream>>>(
-      a.x, a.mean, a.rstd, a.gamma, a.beta, a.alpha, a.wt, a.bias, a.lengths, a.residual, a.y,
-      a.parts, a.c_in, a.c_out, a.t, a.d, vec_x);
+  if constexpr (BF16) {
+    using L = TileBf16<NT, K, WG>;
+    const int vec_x = (a.t % 8 == 0) && (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
+    const dim3 grid((a.t + NT - 1) / NT, (a.c_out + L::CO_TILE - 1) / L::CO_TILE, a.batch);
+    mrf_round_bf16_kernel<NT, K, WG><<<grid, L::THREADS, L::BYTES, a.stream>>>(
+        static_cast<const uint16_t*>(a.x), a.mean, a.rstd, a.gamma, a.beta, a.alpha,
+        static_cast<const uint16_t*>(a.wt), a.bias, a.lengths,
+        static_cast<const uint16_t*>(a.residual), static_cast<uint16_t*>(a.y), a.parts,
+        a.c_in, a.c_out, a.t, a.d, vec_x);
+  } else {
+    using L = Tile<NT, K, WG>;
+    const int vec_x = (a.t % 4 == 0) && (reinterpret_cast<uintptr_t>(a.x) % 16 == 0);
+    const dim3 grid((a.t + NT - 1) / NT, (a.c_out + L::CO_TILE - 1) / L::CO_TILE, a.batch);
+    mrf_round_kernel<NT, K, WG><<<grid, L::THREADS, L::BYTES, a.stream>>>(
+        static_cast<const float*>(a.x), a.mean, a.rstd, a.gamma, a.beta, a.alpha,
+        static_cast<const float*>(a.wt), a.bias, a.lengths,
+        static_cast<const float*>(a.residual), static_cast<float*>(a.y), a.parts, a.c_in,
+        a.c_out, a.t, a.d, vec_x);
+  }
   return (int)cudaGetLastError();
 }
 
-template <int NT, int WG>
+template <int NT, int WG, bool BF16>
 int launch_k(const Args& a) {
   switch (a.k) {
     case 3:
-      return launch<NT, 3, WG>(a);
+      return launch<NT, 3, WG, BF16>(a);
     case 7:
-      return launch<NT, 7, WG>(a);
+      return launch<NT, 7, WG, BF16>(a);
     default:
-      return launch<NT, 11, WG>(a);
+      return launch<NT, 11, WG, BF16>(a);
   }
 }
 
 // NT: the widest frame tile that still gives every SM a block.
-template <int WG>
+template <int WG, bool BF16>
 int launch_nt(const Args& a, int sms) {
   const long long tiles =  // blocks per T-tile column
       (long long)((a.c_out + 64 * WG - 1) / (64 * WG)) * a.batch;
-  if ((a.t + 255) / 256 * tiles >= sms) return launch_k<256, WG>(a);
-  if ((a.t + 127) / 128 * tiles >= sms) return launch_k<128, WG>(a);
-  return launch_k<64, WG>(a);
+  if ((a.t + 255) / 256 * tiles >= sms) return launch_k<256, WG, BF16>(a);
+  if ((a.t + 127) / 128 * tiles >= sms) return launch_k<128, WG, BF16>(a);
+  return launch_k<64, WG, BF16>(a);
+}
+
+template <bool BF16>
+int run(const Args& a, int device) {
+  const int ci_chunk = BF16 ? CI_CHUNK_BF16 : CI_CHUNK;
+  if ((a.k != 3 && a.k != 7 && a.k != 11) || a.d < 1 || (a.k * a.d - a.d) / 2 > MAX_PAD ||
+      a.batch < 1 || a.batch > 65535 || a.t < 1 || a.c_in < ci_chunk ||
+      a.c_in % ci_chunk != 0 || a.c_out < 32 || a.c_out % 32 != 0 ||
+      reinterpret_cast<uintptr_t>(a.wt) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  static bool ready[64] = {};  // per device: every instantiation allowed its shared memory
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!ready[device]) {
+    err = allow_smem_all<BF16>();
+    if (err != cudaSuccess) return (int)err;
+    ready[device] = true;
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  return a.c_out % 128 == 0 ? launch_nt<2, BF16>(a, sms) : launch_nt<1, BF16>(a, sms);
 }
 
 }  // namespace
@@ -411,25 +709,21 @@ int mrf_round_f32(const float* x, const float* mean, const float* rstd,
                   const float* wt, const float* bias, const int* lengths,
                   const float* residual, float* y, float* parts, int batch, int c_in,
                   int c_out, int t, int k, int d, int device, void* stream) {
-  if ((k != 3 && k != 7 && k != 11) || d < 1 || (k * d - d) / 2 > MAX_PAD || batch < 1 ||
-      batch > 65535 || t < 1 || c_in < CI_CHUNK || c_in % CI_CHUNK != 0 || c_out < 32 ||
-      c_out % 32 != 0 || reinterpret_cast<uintptr_t>(wt) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  static bool ready[64] = {};  // per device: every instantiation allowed its shared memory
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  if (!ready[device]) {
-    err = allow_smem_all();
-    if (err != cudaSuccess) return (int)err;
-    ready[device] = true;
-  }
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
   const Args a{x, mean, rstd, gamma, beta, alpha, wt, bias, lengths, residual, y, parts,
                batch, c_in, c_out, t, k, d, static_cast<cudaStream_t>(stream)};
-  return c_out % 128 == 0 ? launch_nt<2>(a, sms) : launch_nt<1>(a, sms);
+  return run<false>(a, device);
+}
+
+// The bf16 form: x, wt, residual and y are bf16 (raw 16-bit words), the
+// rest as for mrf_round_f32; C_in % 16 == 0.
+int mrf_round_bf16(const void* x, const float* mean, const float* rstd,
+                   const float* gamma, const float* beta, const float* alpha,
+                   const void* wt, const float* bias, const int* lengths,
+                   const void* residual, void* y, float* parts, int batch, int c_in,
+                   int c_out, int t, int k, int d, int device, void* stream) {
+  const Args a{x, mean, rstd, gamma, beta, alpha, wt, bias, lengths, residual, y, parts,
+               batch, c_in, c_out, t, k, d, static_cast<cudaStream_t>(stream)};
+  return run<true>(a, device);
 }
 
 }  // extern "C"

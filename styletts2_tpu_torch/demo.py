@@ -14,6 +14,9 @@ Examples:
   # on the CPU
   python -m styletts2_tpu_torch.demo --phonemes "..." --device cpu
 
+  # bf16 serving: the nets cast to bf16 and the engine's compute_dtype set
+  python -m styletts2_tpu_torch.demo --phonemes "..." --bf16
+
 ``--ckpt`` takes the port's or the JAX package's ``.npz`` checkpoints and
 reference ``.pth`` ones; without it the nets take the reference's
 initialisation, seeded 0.  ``--text`` needs ``phonemizer`` with espeak-ng.
@@ -62,8 +65,6 @@ def main(argv: Optional[Sequence[str]] = None):
     args = ap.parse_args(argv)
     if not (args.text or args.phonemes):
         ap.error("provide --text or --phonemes")
-    if args.bf16:
-        raise NotImplementedError("bf16 serving is not ported yet (ROADMAP.md §A item 4)")
 
     import torch
 
@@ -94,8 +95,13 @@ def main(argv: Optional[Sequence[str]] = None):
             load_jax_params({n: nets[n] for n in converted if n in nets}, converted)
         else:
             load_checkpoint(args.ckpt, nets)
+    compute_dtype = None
+    if args.bf16:
+        compute_dtype = torch.bfloat16
+        nets = nets.to(compute_dtype)
     engine = InferenceEngine(nets, mp, PLBertConfig(),
-                             sigma_data=mp.diffusion.dist.sigma_data, device=device)
+                             sigma_data=mp.diffusion.dist.sigma_data, device=device,
+                             compute_dtype=compute_dtype)
 
     ref_s = None
     if args.ref_audio:

@@ -17,6 +17,8 @@ frame capacity and runs the decoder once; the JAX engine launches a
 speculative decoder pass and reruns it when the speculation was short.
 The frame capacity is kept all the same: the generator's convolutions see
 the padded region near each sample's tail, so it changes the waveform.
+
+``serve.BatchSynthesizer`` is the batched front door over this engine.
 """
 
 from __future__ import annotations
@@ -62,15 +64,35 @@ class InferenceEngine:
     (``models.zoo.build_nets``), moved to ``device`` (default: the GPU).
     A multispeaker model needs a reference style ``ref_s`` per request
     (``compute_style``), and ``compute_style`` needs the nets'
-    ``style_encoder`` and ``predictor_encoder``."""
+    ``style_encoder`` and ``predictor_encoder``.
+
+    bf16 serving, as the JAX engine's ``compute_dtype``: the caller casts
+    the nets (``nets.to(torch.bfloat16)`` casts the floating parameters and
+    buffers, as ``utils.cast_pytree`` casts the zoo) and passes
+    ``compute_dtype=torch.bfloat16``.  The dtypes then follow JAX's
+    promotion (``jax.make_jaxpr`` of ``_frontend_fn`` and ``_synth_fn`` on
+    a bf16 zoo):
+    - frontend: the text encoder, PL-BERT, ``bert_encoder`` and the
+      denoiser (its f32 noise and sigma cast in) run in bf16; the sampler
+      mixes in f32; the duration encoder and head take f32 (the bf16
+      encoding joined to the f32 style), so their bf16 weights promote to
+      f32, as do the style mix and ``pred_dur``;
+    - synthesis: t_en, d, s, ref and the alignment go to bf16; the F0/N
+      predictor and the decoder run in bf16 with f32 norm statistics
+      (``nn/norm.py``) and an f32 AdaIN -> Snake (K2's bf16 form), the
+      harmonic source and its STFT in f32 and the iSTFT head in f32;
+    - ``compute_style`` runs its encoders in bf16 and gives a bf16 style.
+    The returned waves are float32."""
 
     def __init__(self, nets: torch.nn.ModuleDict, model_params: ModelParams,
                  plbert_cfg: PLBertConfig = PLBertConfig(), sigma_data: float = 0.2,
                  token_bucket: int = 32, frame_bucket: int = 100,
                  last_token_pad: int = 5, duration_headroom: int = 10,
-                 max_frames: int = 1200, device=None):
+                 max_frames: int = 1200, device=None,
+                 compute_dtype: Optional[torch.dtype] = None):
         self.device = resolve_device(device)
         self.nets = nets.to(self.device).eval()
+        self.compute_dtype = compute_dtype
         self.model_params = model_params
         self.plbert_cfg = plbert_cfg
         self.sigma_data = sigma_data
@@ -151,7 +173,7 @@ class InferenceEngine:
         """Hard alignment and F0/N: (asr, f0, n, frames) at ``t_mel`` frames."""
         token_mask = (torch.arange(t_en.shape[-1], device=self.device)[None, :]
                       < lengths[:, None]).float()
-        aln = hard_alignment(pred_dur, t_mel, token_mask)
+        aln = hard_alignment(pred_dur, t_mel, token_mask).to(d.dtype)
         en = torch.matmul(d.transpose(1, 2), aln)
         asr = torch.matmul(t_en, aln)
         if self.model_params.decoder.type == "hifigan":
@@ -163,6 +185,9 @@ class InferenceEngine:
         return asr, f0, n, frames
 
     def _synthesis(self, t_en, d, s, ref, pred_dur, lengths, t_mel, source_noise=None):
+        if self.compute_dtype is not None:
+            # the vocoder runs in the compute dtype; the source and STFT re-pin f32
+            t_en, d, s, ref = (v.to(self.compute_dtype) for v in (t_en, d, s, ref))
         asr, f0, n, frames = self._decoder_inputs(t_en, d, s, pred_dur, lengths, t_mel)
         if source_noise is not None:
             need = t_mel * SAMPLES_PER_FRAME
@@ -185,9 +210,11 @@ class InferenceEngine:
                    return_durations: bool = False,
                    source_noise: Optional[torch.Tensor] = None,
                    ref_s: Optional[torch.Tensor] = None, alpha: float = 0.3,
-                   beta: float = 0.7):
-        """Phoneme string(s) -> waveform(s) (24 kHz numpy, trimmed to each
-        sample's ``sum(pred_dur) * 600`` samples).
+                   beta: float = 0.7, trim_tail: int = 0):
+        """Phoneme string(s) -> waveform(s) (24 kHz float32 numpy, trimmed to
+        each sample's ``sum(pred_dur) * 600`` samples, less ``trim_tail``
+        samples from each end: the reference trims 50-100 clicking samples,
+        Demo/Inference_LibriTTS.ipynb cell 16).
 
         ``ref_s`` (B or 1, 2*style_dim), e.g. from ``compute_style``: the
         reference style, mixed in by ``alpha`` (acoustic) and ``beta``
@@ -232,9 +259,11 @@ class InferenceEngine:
         frames = pred_dur_np.sum(axis=1)
         t_mel = self.frame_capacity(int(lengths_np.max()), int(frames.max()))
         wav = self._synthesis(t_en, d, s, ref, pred_dur, lengths, t_mel,
-                              source_noise).cpu().numpy()
+                              source_noise).float().cpu().numpy()
 
         outs = [wav[i, : int(frames[i]) * SAMPLES_PER_FRAME] for i in range(b)]
+        if trim_tail:
+            outs = [w[:-trim_tail] for w in outs]
         result = outs[0] if single else outs
         extras = []
         if return_styles:
@@ -262,6 +291,36 @@ class InferenceEngine:
         """Synthesize the text with the reference speaker's style mixed in
         (Demo/Inference_LibriTTS.ipynb cell 45)."""
         return self.synthesize(phonemes, ref_s=ref_s, alpha=alpha, beta=beta, **kw)
+
+    @torch.inference_mode()
+    def warmup(self, token_caps: Sequence[int] = (32, 64),
+               frame_caps: Sequence[int] = (200, 400),
+               diffusion_steps: Sequence[int] = (5,), batch: int = 1) -> None:
+        """Run the shapes a server will meet once, as the JAX engine's warmup
+        compiles them: per (token cap, steps) the frontend on ``batch``
+        requests of that many tokens, then the synthesis at each frame
+        capacity of ``frame_caps`` (or at the frames the durations need,
+        where that is more).  On the card the first call builds the
+        kernels (``kernels/build.py``) and cuDNN's and the allocator's caches
+        fill at those shapes, so the first request pays for none of it.  A
+        multispeaker model is warmed with a zero reference style."""
+        mp = self.model_params
+        shape = (batch, 1, 2 * mp.style_dim)
+        ref_s = torch.zeros((batch, 2 * mp.style_dim), device=self.device) \
+            if mp.multispeaker else None
+        for steps in diffusion_steps:
+            for cap in token_caps:
+                tokens, lengths_np = self.tokenize(["a" * (cap - 2)] * batch)
+                lengths = torch.from_numpy(lengths_np).to(self.device)
+                noise = torch.zeros(shape, device=self.device)
+                step_noise = torch.zeros((steps - 1, *shape), device=self.device)
+                t_en, d, s, ref, _, pred_dur = self._frontend(
+                    tokens, lengths, noise, step_noise, steps, 1.0, None, 0.0, ref_s)
+                frames = int(pred_dur.sum(1).max())     # a capacity holds them all
+                for t_mel in frame_caps:
+                    self._synthesis(t_en, d, s, ref, pred_dur, lengths, max(t_mel, frames))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def long_form(self, sentences: Sequence[str], t: float = 0.7,
                   generator: Optional[torch.Generator] = None, **kw) -> np.ndarray:

@@ -13,12 +13,21 @@ frames ``t < lengths[b]``; ``stats_from_partials`` combines them (Chan) into
 the next round's (mean, rstd).  Values in [lengths, T) are computed, not
 zeroed: only the statistics are masked.
 
+Two forms, after x's dtype: f32, and bf16 (the TPU kernel on a bf16 buffer,
+``mrf_round_kernel.py:95-160``), where x, w, residual and y are bf16 while
+the statistics, the AdaIN/Snake parameters and the bias stay f32.  The bf16
+form computes AdaIN -> Snake in f32 and rounds it to bf16, multiplies it by
+the bf16 weights with f32 sums, adds bias and residual in f32, rounds y to
+bf16 and takes the partials from the rounded y.
+
 ``mrf_round`` takes a tensor on the CPU to ``mrf_round_plain`` and a CUDA
-tensor to the kernel, which runs the conv on the tensor cores (wgmma) in
-3xTF32, f32-accurate, and takes C_in a multiple of 8 and C_out a multiple of
-32 (the generators' stages have 256 down to 32 channels); anything else
-raises.  ``launches`` counts kernel launches.  Inference
-only: there is no backward.
+tensor to the kernel of its dtype, which runs the conv on the tensor cores
+(wgmma): in 3xTF32, f32-accurate, for f32 and with C_in a multiple of 8; in
+bf16 with f32 accumulators, and C_in a multiple of 16, for bf16.  C_out is a
+multiple of 32 (the generators' stages have 256 down to 32 channels);
+anything else raises.  ``launches`` counts kernel launches of both forms,
+``bf16_launches`` those of the bf16 form.  Inference only: there is no
+backward.
 """
 
 from __future__ import annotations
@@ -37,8 +46,11 @@ T_TILE = 64             # frames per tile of the partials; equals the kernel's
 KERNEL_SIZES = (3, 7, 11)
 MAX_PAD = 32            # the kernel's halo room: (k*d - d) // 2 <= MAX_PAD
 CI_MULTIPLE, CO_MULTIPLE = 8, 32    # the kernel's chunk of C_in; C_out's step
+CI_MULTIPLE_BF16 = 16               # the bf16 form's chunk of C_in: one k16 step
+FORMS = (torch.float32, torch.bfloat16)   # x, w, residual and y share one of these
 
 launches = 0
+bf16_launches = 0
 
 _LIB: Optional[ctypes.CDLL] = None
 
@@ -48,8 +60,9 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = build.load("mrf_round")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mrf_round_f32.argtypes = [p] * 12 + [i] * 7 + [p]
-        lib.mrf_round_f32.restype = i
+        for fn in (lib.mrf_round_f32, lib.mrf_round_bf16):
+            fn.argtypes = [p] * 12 + [i] * 7 + [p]
+            fn.restype = i
         lib.mrf_round_t_tile.restype = i
         if lib.mrf_round_t_tile() != T_TILE:
             raise RuntimeError("csrc/mrf_round.cu tiles T by "
@@ -74,11 +87,15 @@ def _check(x, mean, rstd, gamma, beta, alpha, w, bias, lengths, k, d, residual):
         expect["residual"] = (residual, (b, c_out, t))
     if torch.is_grad_enabled() and any(a.requires_grad for a, _ in expect.values()):
         raise RuntimeError("mrf_round has no backward: call it under torch.no_grad()")
+    if x.dtype not in FORMS:
+        raise TypeError(f"mrf_round: x is {x.dtype}, needs float32 or bfloat16")
     for name, (a, shape) in expect.items():
         if a.device != x.device:
             raise ValueError(f"mrf_round: {name} on {a.device}, x on {x.device}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"mrf_round: {name} is {a.dtype}, needs float32")
+        need = x.dtype if name in ("x", "w", "residual") else torch.float32
+        if a.dtype != need:
+            raise TypeError(f"mrf_round: {name} is {a.dtype}, needs {need} "
+                            f"(x is {x.dtype})")
         if tuple(a.shape) != shape:
             raise ValueError(f"mrf_round: {name} has shape {tuple(a.shape)}, needs {shape}")
         if not a.is_contiguous():
@@ -98,12 +115,13 @@ def mrf_round(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
               w: torch.Tensor, bias: torch.Tensor, lengths: torch.Tensor, *,
               k: int, d: int, residual: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One round.  x (B, C_in, T) f32; mean, rstd, gamma, beta (B, C_in);
-    alpha (C_in,); w (C_out, C_in, k) the effective (weight-normed) kernel;
-    bias (C_out,); lengths (B,) int32; residual (B, C_out, T) or None.
+    """One round.  x (B, C_in, T) f32 or bf16; mean, rstd, gamma, beta
+    (B, C_in) f32; alpha (C_in,) f32; w (C_out, C_in, k) the effective
+    (weight-normed) kernel in x's dtype; bias (C_out,) f32; lengths (B,)
+    int32; residual (B, C_out, T) in x's dtype, or None.
 
-    Returns y (B, C_out, T) and partials (B, n_tiles(T), 3, C_out) f32 with
-    rows [S1, M2, n] per tile of ``T_TILE`` frames.
+    Returns y (B, C_out, T) in x's dtype and partials (B, n_tiles(T), 3,
+    C_out) f32 with rows [S1, M2, n] per tile of ``T_TILE`` frames.
     """
     _check(x, mean, rstd, gamma, beta, alpha, w, bias, lengths, k, d, residual)
     if x.device.type == "cpu":
@@ -113,13 +131,16 @@ def mrf_round(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
         raise ValueError(f"mrf_round: no kernel for device {x.device}")
     b, c_in, t = x.shape
     c_out = w.shape[0]
-    if c_in % CI_MULTIPLE or c_out % CO_MULTIPLE:
-        raise ValueError(f"mrf_round: the kernel takes C_in % {CI_MULTIPLE} == 0 and "
-                         f"C_out % {CO_MULTIPLE} == 0, not {c_in} -> {c_out}")
+    bf16 = x.dtype == torch.bfloat16
+    ci_multiple = CI_MULTIPLE_BF16 if bf16 else CI_MULTIPLE
+    if c_in % ci_multiple or c_out % CO_MULTIPLE:
+        raise ValueError(f"mrf_round: the {x.dtype} kernel takes C_in % {ci_multiple} == 0 "
+                         f"and C_out % {CO_MULTIPLE} == 0, not {c_in} -> {c_out}")
     wt = w.permute(2, 0, 1).contiguous()                       # (k, C_out, C_in)
-    y = torch.empty((b, c_out, t), device=x.device, dtype=torch.float32)
+    y = torch.empty((b, c_out, t), device=x.device, dtype=x.dtype)
     parts = torch.empty((b, n_tiles(t), 3, c_out), device=x.device, dtype=torch.float32)
-    rc = _lib().mrf_round_f32(
+    lib = _lib()
+    rc = (lib.mrf_round_bf16 if bf16 else lib.mrf_round_f32)(
         x.data_ptr(), mean.data_ptr(), rstd.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), alpha.data_ptr(), wt.data_ptr(), bias.data_ptr(),
         lengths.data_ptr(), None if residual is None else residual.data_ptr(),
@@ -127,21 +148,26 @@ def mrf_round(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
         x.device.index, torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"mrf_round kernel launch failed: cudaError_t {rc}")
-    global launches
+    global launches, bf16_launches
     launches += 1
+    bf16_launches += bf16
     return y, parts
 
 
 def mrf_round_plain(x, mean, rstd, gamma, beta, alpha, w, bias, lengths, *,
                     k: int, d: int, residual=None):
-    """The same round as a torch composition (any device)."""
-    u = ((1.0 + gamma[:, :, None]) * ((x - mean[:, :, None]) * rstd[:, :, None])
+    """The same round as a torch composition (any device).  For bf16 x it
+    rounds where the TPU kernel does: the f32 activation to bf16, then a conv
+    of the upcast bf16 operands in f32, bias and residual added in f32, y
+    rounded to bf16, and the partials of the rounded y."""
+    u = ((1.0 + gamma[:, :, None]) * ((x.float() - mean[:, :, None]) * rstd[:, :, None])
          + beta[:, :, None])
-    y = F.conv1d(snake(u, alpha[None, :, None]), w, bias,
-                 padding=(k * d - d) // 2, dilation=d)
+    a = snake(u, alpha[None, :, None]).to(x.dtype)
+    y = F.conv1d(a.float(), w.float(), bias, padding=(k * d - d) // 2, dilation=d)
     if residual is not None:
-        y = y + residual
-    return y, tile_partials(y, lengths)
+        y = y + residual.float()
+    y = y.to(x.dtype)
+    return y, tile_partials(y.float(), lengths)
 
 
 def tile_partials(y: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -177,9 +203,11 @@ def stats_from_partials(parts: torch.Tensor, lengths: torch.Tensor, t: int
 
 def masked_stats(x: torch.Tensor, lengths: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(mean, rstd) (B, C) of x (B, C, T) over the frames ``< lengths``:
-    biased variance, eps inside the rsqrt.  Seeds a stage's first round."""
+    """(mean, rstd) (B, C) f32 of x (B, C, T) over the frames ``< lengths``:
+    biased variance, eps inside the rsqrt, reduced in f32 whatever x's dtype.
+    Seeds a stage's first round."""
     t = x.shape[-1]
+    x = x.float()
     keep = (torch.arange(t, device=x.device)[None, :]
             < torch.clamp(lengths, max=t)[:, None]).to(x.dtype)[:, None, :]
     n = torch.clamp(keep.sum(-1), min=1.0)                     # (B, 1)

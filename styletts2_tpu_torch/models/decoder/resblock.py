@@ -59,9 +59,11 @@ def adain_resblock1_apply(m: AdainResBlock1, x: torch.Tensor, s: torch.Tensor,
 
 
 def _round(x, stats, affine, alpha, conv, s, lengths, k, d, residual=None):
-    gamma, beta = (a.contiguous() for a in style_affine(affine.fc, s))
-    return mrf_round(x, stats[0], stats[1], gamma, beta, alpha.reshape(-1),
-                     conv.weight(), conv.bias, lengths, k=k, d=d, residual=residual)
+    """One round in x's dtype; the AdaIN/Snake parameters and the bias go in
+    f32, as the JAX package's ``pack_plane`` makes them."""
+    gamma, beta = (a.float().contiguous() for a in style_affine(affine.fc, s))
+    return mrf_round(x, stats[0], stats[1], gamma, beta, alpha.reshape(-1).float(),
+                     conv.weight(), conv.bias.float(), lengths, k=k, d=d, residual=residual)
 
 
 def adain_resblock1_fused(m: AdainResBlock1, x: torch.Tensor, s: torch.Tensor,

@@ -43,9 +43,9 @@ def text_encoder_apply(m: TextEncoder, tokens: torch.Tensor,
     b, t = tokens.shape
     if lengths is None:
         lengths = torch.full((b,), t, dtype=torch.int32, device=tokens.device)
-    keep = cm.length_mask(lengths, t)[:, None, :].float()         # (B, 1, T)
-
-    x = cm.embedding(m.embedding, tokens).transpose(1, 2) * keep  # (B, C, T)
+    x = cm.embedding(m.embedding, tokens).transpose(1, 2)         # (B, C, T)
+    keep = cm.length_mask(lengths, t)[:, None, :].to(x.dtype)     # (B, 1, T)
+    x = x * keep
     pad = (m.kernel_size - 1) // 2
     for i, (conv, norm) in enumerate(m.cnn):
         x = cm.wn_conv1d(conv, x, padding=pad)

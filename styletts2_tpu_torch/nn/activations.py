@@ -28,8 +28,10 @@ def sin_turns(r: torch.Tensor) -> torch.Tensor:
 
 
 def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
-    """Snake1D: ``x + sin(alpha*x)^2 / alpha`` (ref: Modules/istftnet.py:69)."""
-    return x + torch.sin(alpha * x) ** 2 / alpha
+    """Snake1D: ``x + sin(alpha*x)^2 / alpha`` (ref: Modules/istftnet.py:69),
+    computed in f32 and returned in x's dtype, as the JAX package's."""
+    xf, af = x.float(), alpha.float()
+    return (xf + torch.sin(af * xf) ** 2 / af).to(x.dtype)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

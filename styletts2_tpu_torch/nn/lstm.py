@@ -16,13 +16,23 @@ from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 def bilstm(lstm: nn.LSTM, x: torch.Tensor,
            lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, T, I) -> (B, T, 2H) through a ``batch_first`` bidirectional LSTM."""
+    """(B, T, I) -> (B, T, 2H) through a ``batch_first`` bidirectional LSTM.
+    Mixed dtypes promote, as the JAX scan's products do: an f32 input runs
+    bf16 weights as f32 (the duration encoder under a bf16 zoo)."""
+    dt = torch.promote_types(x.dtype, lstm.weight_ih_l0.dtype)
+    x = x.to(dt)
+    run = lstm
+    if lstm.weight_ih_l0.dtype != dt:
+        params = {n: p.to(dt) for n, p in lstm.named_parameters()}
+
+        def run(inp):      # a PackedSequence is a tuple: pass it as one argument
+            return torch.func.functional_call(lstm, params, (inp,))
     if lengths is None:
-        out, _ = lstm(x)
+        out, _ = run(x)
         return out
     packed = pack_padded_sequence(x, lengths.to("cpu", torch.int64),
                                   batch_first=True, enforce_sorted=False)
-    out, _ = lstm(packed)
+    out, _ = run(packed)
     out, _ = pad_packed_sequence(out, batch_first=True, total_length=x.shape[1])
     return out
 

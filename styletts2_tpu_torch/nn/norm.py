@@ -1,7 +1,9 @@
 """Normalization layers (channels-first) and the AdaIN family.
 
 Numerics follow ``styletts2_tpu/nn/norm.py``: biased variance, eps inside the
-square root, and masked statistics taken over valid frames only.
+square root, masked statistics taken over valid frames only, and statistics
+and normalisation in f32 whatever the input's dtype, the result returned in
+that dtype before the affine (a bf16 mean/var over a long axis loses bits).
 """
 
 from __future__ import annotations
@@ -17,9 +19,10 @@ def layer_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
                beta: Optional[torch.Tensor] = None, eps: float = 1e-5,
                dim: int = -1) -> torch.Tensor:
     """LayerNorm over one axis (weight/bias broadcast along that axis)."""
-    mean = x.mean(dim=dim, keepdim=True)
-    var = x.var(dim=dim, keepdim=True, unbiased=False)
-    y = (x - mean) / torch.sqrt(var + eps)
+    xf = x.float()
+    mean = xf.mean(dim=dim, keepdim=True)
+    var = xf.var(dim=dim, keepdim=True, unbiased=False)
+    y = ((xf - mean) / torch.sqrt(var + eps)).to(x.dtype)
     if gamma is not None:
         shape = [1] * x.ndim
         shape[dim] = x.shape[dim]
@@ -32,19 +35,21 @@ def layer_norm(x: torch.Tensor, gamma: Optional[torch.Tensor] = None,
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm over all spatial axes of (B, C, *spatial)."""
     dims = tuple(range(2, x.ndim))
-    mean = x.mean(dim=dims, keepdim=True)
-    var = x.var(dim=dims, keepdim=True, unbiased=False)
-    return (x - mean) / torch.sqrt(var + eps)
+    xf = x.float()
+    mean = xf.mean(dim=dims, keepdim=True)
+    var = xf.var(dim=dims, keepdim=True, unbiased=False)
+    return ((xf - mean) / torch.sqrt(var + eps)).to(x.dtype)
 
 
 def masked_instance_norm1d(x: torch.Tensor, keep: torch.Tensor,
                            eps: float = 1e-5) -> torch.Tensor:
     """InstanceNorm over valid frames only: ``keep`` (B, T) marks validity."""
-    k = keep[:, None, :].to(x.dtype)
+    xf = x.float()
+    k = keep[:, None, :].float()
     n = torch.clamp(k.sum(dim=2, keepdim=True), min=1.0)
-    mean = (x * k).sum(dim=2, keepdim=True) / n
-    var = (torch.square(x - mean) * k).sum(dim=2, keepdim=True) / n
-    return (x - mean) / torch.sqrt(var + eps)
+    mean = (xf * k).sum(dim=2, keepdim=True) / n
+    var = (torch.square(xf - mean) * k).sum(dim=2, keepdim=True) / n
+    return ((xf - mean) / torch.sqrt(var + eps)).to(x.dtype)
 
 
 def style_affine(fc, s: torch.Tensor):

@@ -32,3 +32,4 @@ def test_library_path_follows_source_headers_and_flags(tmp_path, monkeypatch):
 def test_every_kernel_source_is_built():
     assert build.sources() == ["adain_snake", "maximum_path", "mrf_round"]
     assert (build.CSRC / "tf32_wgmma.cuh").is_file()
+    assert (build.CSRC / "bf16_wgmma.cuh").is_file()

@@ -3,7 +3,7 @@ HiFi-GAN config written to a temporary directory, a checkpoint saved by the
 port, a seeded reference clip at 22050 Hz.  The wave file it writes is the
 one the root ``demo.py``'s ``write_wav`` writes for the same samples, and
 the samples are the engine's ``style_transfer`` with the checkpoint's
-weights.  ``--text`` needs ``phonemizer``; without ``--device`` the demo
+weights, in f32 and, under ``--bf16``, with the nets in bf16.  ``--text`` needs ``phonemizer``; without ``--device`` the demo
 needs CUDA."""
 
 import importlib.util
@@ -106,10 +106,30 @@ def test_demo_without_device_needs_cuda(files):
 
 
 def test_demo_bf16_is_not_ported(files):
+    """Named when ``--bf16`` raised; it now serves: ``--bf16 --device cpu``
+    casts the nets to bf16, sets the engine's ``compute_dtype`` and writes
+    the bf16 engine's float32 wave."""
     tmp, cfg_path, ckpt, ref = files
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        demo.main(["--config", cfg_path, "--phonemes", PHONEMES, "--bf16",
-                   "--out", str(tmp / "b.wav"), "--device", "cpu"])
+    out = tmp / "b.wav"
+    wav = demo.main(["--config", cfg_path, "--ckpt", ckpt, "--phonemes", PHONEMES, "--bf16",
+                     "--ref_audio", ref, "--seed", "3", "--steps", "3", "--out", str(out),
+                     "--device", "cpu"])
+    assert wav.dtype == np.float32 and len(wav) > 0 and len(wav) % 600 == 0
+    with wave.open(str(out), "rb") as f:
+        assert f.getnframes() == len(wav)
+
+    mp = load_config(cfg_path).model_params
+    nets = build_nets(mp, PLBertConfig(), nets=STYLE_INFERENCE_NETS)
+    load_checkpoint(ckpt, nets)
+    eng = InferenceEngine(nets.to(torch.bfloat16), mp, PLBertConfig(),
+                          sigma_data=mp.diffusion.dist.sigma_data, device="cpu",
+                          compute_dtype=torch.bfloat16)
+    clip, sr = _read_wav(ref)
+    ref_s = eng.compute_style(_resample_np(clip, sr, 24000))
+    assert ref_s.dtype == torch.bfloat16
+    expect = eng.style_transfer(PHONEMES, ref_s, diffusion_steps=3,
+                                generator=torch.Generator().manual_seed(3))
+    np.testing.assert_array_equal(wav, expect)
 
 
 def test_demo_needs_input():

@@ -7,6 +7,8 @@ against the plain version by the test marked ``cuda``, which skips without a
 GPU, and by chip_smoke.py.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -213,20 +215,29 @@ def test_three_tf32_products_keep_f32_accuracy(rounding):
     assert err_one > 1e-4 * scale, (err_one, scale)
 
 
+def bf16_ulp(a: float) -> float:
+    """The spacing of bf16 values (8 significant bits) at magnitude ``a``."""
+    return 2.0 ** (math.floor(math.log2(a)) - 7)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("with_residual", [False, True])
 @pytest.mark.parametrize("k,d", [(3, 1), (3, 5), (7, 3), (11, 5), (11, 1)])
 @pytest.mark.parametrize("c,t", [(256, 2300), (128, 6001), (128, 12001),
                                  (64, 2300), (64, 12001), (32, 2300), (32, 6001),
                                  (32, 12001)])
-def test_kernel_matches_plain_on_gpu(c, t, k, d, with_residual):
+def test_kernel_matches_plain_on_gpu(c, t, k, d, with_residual, dtype):
     """The CUDA kernel against its plain version on the card at the
-    generators' round shapes, batch 3, lengths = T and < T: y at
-    1e-4 * max|y|, chained stats at 1e-4.  On 132 SMs the (C, T) of each
-    width take the kernel's 64-, 128- and 256-frame tiles; C 64 and 32 its
+    generators' round shapes, batch 3, lengths = T and < T.  f32: y at
+    1e-4 * max|y|, chained stats at 1e-4.  bf16 (x, w, residual and y bf16):
+    y within 2 bf16 ulps of max|y| (the two sum in other orders in f32, and
+    a sum on a rounding boundary may round either way), chained stats at
+    1e-3 (of max|y| for the mean).  On 132 SMs the (C, T) of each width take
+    the kernel's 64-, 128- and 256-frame tiles; C 64 and 32 its
     one-warpgroup blocks, C 32 with half of their weight rows zero; T=2300
-    its 16-byte loads of x, the odd T its 4-byte loads; no T is a multiple
-    of a tile."""
+    its 16-byte loads of x, the odd T its 4-byte (f32) or 2-byte (bf16)
+    loads; no T is a multiple of a tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device and nvcc")
     torch.backends.cudnn.allow_tf32 = False
@@ -234,16 +245,24 @@ def test_kernel_matches_plain_on_gpu(c, t, k, d, with_residual):
     a = round_inputs(4, b, c, t, k, [t, 2 * t // 3, 97])
     dev = torch.device("cuda")
     g = {n: torch.from_numpy(v).to(dev) for n, v in a.items()}
+    bf16 = dtype == "bfloat16"
+    if bf16:
+        for n in ("x", "w", "residual"):
+            g[n] = g[n].to(torch.bfloat16)
     mean, rstd = K.masked_stats(g["x"], g["lengths"])
     args = (g["x"], mean, rstd, g["gamma"], g["beta"], g["alpha"], g["w"], g["bias"],
             g["lengths"])
     res = g["residual"] if with_residual else None
-    launches = K.launches
+    launches, bf16_launches = K.launches, K.bf16_launches
     y, parts = K.mrf_round(*args, k=k, d=d, residual=res)
     torch.cuda.synchronize()
-    assert K.launches == launches + 1
+    assert K.launches == launches + 1 and K.bf16_launches == bf16_launches + bf16
     y_ref, parts_ref = K.mrf_round_plain(*args, k=k, d=d, residual=res)
-    assert float((y - y_ref).abs().max()) <= 1e-4 * float(y_ref.abs().max())
+    assert y.dtype == y_ref.dtype == g["x"].dtype
+    scale = float(y_ref.abs().max())
+    err = float((y.float() - y_ref.float()).abs().max())
+    assert err <= (2 * bf16_ulp(scale) if bf16 else 1e-4 * scale), (err, scale)
+    tol = dict(atol=1e-3 * scale, rtol=1e-3) if bf16 else dict(atol=1e-4, rtol=1e-4)
     for got, want in zip(K.stats_from_partials(parts, g["lengths"], t),
                          K.stats_from_partials(parts_ref, g["lengths"], t)):
-        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(got, want, **tol)
